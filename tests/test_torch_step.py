@@ -1,0 +1,206 @@
+"""The plain PyTorch transition against the JAX package's XLA path.
+
+Per field, per step: ``arcle_tpu_torch.ops.plain_step_deferred`` followed by
+``finish_flood`` against ``jax.vmap(arcle_tpu.ops.step_deferred)`` followed
+by ``finish_flood``, on the same states and the same actions, made from a
+seed with numpy.  Integer state, the sparse reward, ``terminated`` and
+``pending`` must be bit-exact.  The float32 shaped rewards (``dense_reward``,
+``pixel_reward``) are compared with rtol=1e-6: XLA may fuse their float
+operations in another order.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from arcle_tpu.core.state import Action as JAction, EnvState as JEnvState
+from arcle_tpu.envs import BatchedEnv as JBatchedEnv
+from arcle_tpu.envs import ResetOptions as JResetOptions
+from arcle_tpu.loaders import SyntheticLoader as JSyntheticLoader
+from arcle_tpu import ops as jops
+from arcle_tpu.ops.table import pixel_reward as jpixel_reward
+
+from arcle_tpu_torch import ops as tops
+from arcle_tpu_torch.core import Action, FIELDS, state_from_numpy, \
+    state_to_numpy
+
+B = 64
+
+_vstep = jax.jit(jax.vmap(jops.step_deferred, in_axes=(0, 0, None)),
+                 static_argnums=2)
+_vfinish = jax.jit(jax.vmap(jops.finish_flood, in_axes=(0, 0, None, 0)),
+                   static_argnums=2)
+_vdense = jax.jit(jax.vmap(jops.dense_reward))
+_vpixel = jax.jit(jax.vmap(jpixel_reward, in_axes=(0, None)),
+                  static_argnums=1)
+
+TABLES = {
+    "o2arc": lambda m: (jops.o2arc_table(max_trial=m),
+                        tops.o2arc_table(max_trial=m)),
+    "o2arc_crop33": lambda m: (jops.o2arc_table(max_trial=m, crop_at_33=True),
+                               tops.o2arc_table(max_trial=m,
+                                                crop_at_33=True)),
+    "arc": lambda m: (jops.arc_table(max_trial=m), tops.arc_table(max_trial=m)),
+    "raw": lambda m: (jops.raw_table(max_trial=m), tops.raw_table(max_trial=m)),
+}
+
+
+def random_selection(rng, H=30, W=30):
+    """Empty, single-pixel, box or sparse random 0/1 selection."""
+    style = rng.integers(0, 4)
+    sel = np.zeros((H, W), np.int8)
+    if style == 1:
+        sel[rng.integers(0, H), rng.integers(0, W)] = 1
+    elif style == 2:
+        x1, x2 = sorted(rng.integers(0, H, 2))
+        y1, y2 = sorted(rng.integers(0, W, 2))
+        sel[x1:x2 + 1, y1:y2 + 1] = 1
+    elif style == 3:
+        sel[rng.random((H, W)) < 0.08] = 1
+    return sel
+
+
+def to_jax(np_state) -> JEnvState:
+    return JEnvState(**{k: jnp.asarray(v) for k, v in np_state.items()})
+
+
+def assert_states_equal(js, ts, what):
+    tn = state_to_numpy(ts)
+    for name in FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(js, name)), tn[name],
+                                      err_msg=f"{what} field {name}")
+
+
+def run_parity(jtable, ttable, jstate, rng, steps, pick_ops, what,
+               select=random_selection):
+    """Step both packages from ``jstate`` with the same actions."""
+    tstate = state_from_numpy(jstate)
+    assert_states_equal(jstate, tstate, f"{what} start")
+    n_pending = 0
+    for t in range(steps):
+        ops = pick_ops(rng).astype(np.int32)
+        sels = np.stack([select(rng) for _ in range(B)])
+        jact = JAction(selection=jnp.asarray(sels), operation=jnp.asarray(ops))
+        tact = Action(selection=torch.from_numpy(sels),
+                      operation=torch.from_numpy(ops))
+
+        js, jr, jt, jp = _vstep(jstate, jact, jtable)
+        ts, tr, tt, tp = tops.plain_step_deferred(tstate, tact, ttable)
+        np.testing.assert_array_equal(np.asarray(jp), tp.numpy(),
+                                      err_msg=f"{what} step {t} pending")
+        if bool(np.asarray(jp).any()):
+            n_pending += 1
+            js = _vfinish(js, jact, jtable, jp)
+            ts = tops.finish_flood(ts, tact, ttable, tp)
+        assert_states_equal(js, ts, f"{what} step {t}")
+        np.testing.assert_array_equal(np.asarray(jr), tr.numpy(),
+                                      err_msg=f"{what} step {t} reward")
+        np.testing.assert_array_equal(np.asarray(jt), tt.numpy(),
+                                      err_msg=f"{what} step {t} terminated")
+        np.testing.assert_allclose(
+            np.asarray(_vdense(js, jr)), tops.dense_reward(ts, tr).numpy(),
+            rtol=1e-6, err_msg=f"{what} step {t} dense_reward")
+        np.testing.assert_allclose(
+            np.asarray(_vpixel(js, 30)), tops.pixel_reward(ts, 30).numpy(),
+            rtol=1e-6, err_msg=f"{what} step {t} pixel_reward")
+        jstate, tstate = js, ts
+    return jstate, n_pending
+
+
+def as_numpy(jstate):
+    return {f.name: np.array(getattr(jstate, f.name))
+            for f in dataclasses.fields(jstate)}
+
+
+def fresh_states(jtable, seed, max_trial, reset_on_submit=False):
+    env = JBatchedEnv(table=jtable, bank=JSyntheticLoader(8, seed=0).bank(),
+                      max_trial=max_trial,
+                      opts=JResetOptions.make(reset_on_submit=reset_on_submit))
+    return env.reset(jax.random.key(seed), B).env
+
+
+@pytest.mark.parametrize("family", sorted(TABLES))
+def test_plain_step_matches_xla(family):
+    jtable, ttable = TABLES[family](3)
+    rng = np.random.default_rng(11 + len(family))
+    n_ops = jtable.n_ops
+    run_parity(jtable, ttable, fresh_states(jtable, 1, 3), rng, 22,
+               lambda r: r.integers(0, n_ops + 2, B) - 1, family)
+
+
+def test_plain_step_reset_on_submit():
+    """Submit-heavy actions with reset_on_submit: the re-init path."""
+    jtable, ttable = TABLES["o2arc"](3)
+    rng = np.random.default_rng(9)
+    pick = lambda r: np.where(r.random(B) < 0.35, 34, r.integers(0, 35, B))
+    run_parity(jtable, ttable, fresh_states(jtable, 2, 3, True), rng, 20,
+               pick, "ros")
+
+
+def test_plain_step_int8_wrap_and_off_grid_objects():
+    """Trial counters near -128 and floating objects near the int8 limits
+    of their position: int8 wraparound on the store and floor division of
+    negative rotation anchors.  Object buffers hold values outside their
+    patch too, so every cell of the transformed buffer is compared."""
+    jtable, ttable = TABLES["o2arc"](3)
+    rng = np.random.default_rng(5)
+    st = as_numpy(fresh_states(jtable, 3, 3))
+    st["trials_remain"] = rng.choice(
+        np.array([-128, -127, -126, 1, 2, 0], np.int8), B)
+    edge = np.array([-128, -127, -126, -100, -31, -2, -1, 0, 27, 29, 31,
+                     100, 125, 126, 127], np.int8)
+    st["object_pos"] = rng.choice(edge, (B, 2)).astype(np.int8)
+    st["object_dim"] = rng.integers(1, 31, (B, 2)).astype(np.int8)
+    st["active"] = (rng.random(B) < 0.8).astype(np.int8)
+    st["rotation_parity"] = rng.integers(0, 2, B).astype(np.int8)
+    st["object"] = rng.integers(0, 10, (B, 30, 30)).astype(np.int8)
+    st["object_sel"] = (rng.random((B, 30, 30)) < 0.5).astype(np.int8)
+    st["background"] = rng.integers(0, 10, (B, 30, 30)).astype(np.int8)
+
+    def pick(r):
+        # mostly object ops (20..27) and Submit, a few others
+        obj = r.integers(20, 28, B)
+        return np.where(r.random(B) < 0.15, 34,
+                        np.where(r.random(B) < 0.8, obj, r.integers(0, 35, B)))
+
+    def select(r):
+        # mostly empty: the stored object keeps moving (the cont path)
+        return np.zeros((30, 30), np.int8) if r.random() < 0.7 \
+            else random_selection(r)
+
+    run_parity(jtable, ttable, to_jax(st), rng, 20, pick, "wrap", select)
+
+
+def test_deferred_flood_serpentine():
+    """A flood whose component needs far more than FLOOD_UNROLL sweeps is
+    pending after the step and exact after ``finish_flood``."""
+    jtable, ttable = TABLES["o2arc"](3)
+    g = np.full((30, 30), 2, np.int8)
+    for r in range(0, 30, 2):
+        g[r, :] = 1
+    for i, r in enumerate(range(1, 29, 2)):
+        g[r, 29 if i % 2 == 0 else 0] = 1
+    st = as_numpy(fresh_states(jtable, 4, 3))
+    st["grid"] = np.broadcast_to(g, (B, 30, 30)).copy()
+    st["input"] = st["grid"].copy()
+    st["grid_dim"] = np.full((B, 2), 30, np.int8)
+    st["input_dim"] = st["grid_dim"].copy()
+    jstate = to_jax(st)
+    ops = np.full(B, 14, np.int32)          # FloodFill4
+    sels = np.zeros((B, 30, 30), np.int8)
+    sels[np.arange(B), 0, np.arange(B) % 30] = 1
+    jact = JAction(selection=jnp.asarray(sels), operation=jnp.asarray(ops))
+    tact = Action(selection=torch.from_numpy(sels),
+                  operation=torch.from_numpy(ops))
+    js, _, _, jp = _vstep(jstate, jact, jtable)
+    ts, _, _, tp = tops.plain_step_deferred(state_from_numpy(st), tact,
+                                            ttable)
+    assert bool(tp.all()) and np.asarray(jp).all()
+    js = _vfinish(js, jact, jtable, jp)
+    ts = tops.finish_flood(ts, tact, ttable, tp)
+    assert_states_equal(js, ts, "serpentine")
+    assert (ts.grid.numpy() == np.where(g == 1, 4, 2)).all()
