@@ -26,6 +26,7 @@ from ..ops.table import (
     answers_match_any as _match,
 )
 from ..ops.step_kernel import cuda_step_deferred
+from .meta import augment_task, draw_augmentation
 
 
 def _env_rows(v: torch.Tensor, batch: int) -> torch.Tensor:
@@ -59,6 +60,10 @@ class ResetOptions:
             adaptation=t(adaptation, torch.bool),
             reset_on_submit=t(reset_on_submit, torch.bool))
 
+    def to(self, device) -> "ResetOptions":
+        return ResetOptions(**{f.name: getattr(self, f.name).to(device)
+                               for f in dataclasses.fields(self)})
+
     def rows(self, batch: int, device) -> "ResetOptions":
         """Every field as a ``[batch]`` row on ``device``."""
         return ResetOptions(**{
@@ -67,8 +72,13 @@ class ResetOptions:
 
 
 def reset(bank: TaskBank, generator: torch.Generator, opts: ResetOptions,
-          batch: int, max_trial: int = -1) -> EnvState:
-    """Fresh states for ``batch`` envs: pick (task, pair), initialise."""
+          batch: int, max_trial: int = -1,
+          augment: bool = False) -> EnvState:
+    """Fresh states for ``batch`` envs: pick (task, pair), initialise.
+
+    ``augment`` applies the reset-time rot90 + colour permutation
+    (:mod:`.meta`) to the chosen pairs, drawn from ``generator``.
+    """
     dev = bank.device
     o = opts.rows(batch, dev)
     draw_task = torch.randint(0, bank.n_tasks, (batch,), generator=generator,
@@ -80,9 +90,13 @@ def reset(bank: TaskBank, generator: torch.Generator, opts: ResetOptions,
     sub = torch.where(o.subprob_index >= 0, o.subprob_index,
                       draw_pair % torch.clamp(count, min=1))
     flat = bank.pair_index(prob, sub, o.adaptation).long()
-    return init_state(bank.in_grids[flat], bank.in_dims[flat],
-                      bank.out_grids[flat], bank.out_dims[flat],
-                      max_trial=max_trial,
+    grid, dim = bank.in_grids[flat], bank.in_dims[flat]
+    answer, answer_dim = bank.out_grids[flat], bank.out_dims[flat]
+    if augment:
+        k, perm = draw_augmentation(generator, batch, dev)
+        grid, dim, answer, answer_dim = augment_task(grid, dim, answer,
+                                                     answer_dim, k, perm)
+    return init_state(grid, dim, answer, answer_dim, max_trial=max_trial,
                       reset_on_submit=o.reset_on_submit.to(I8))
 
 
@@ -135,16 +149,24 @@ class BatchedEnv:
     dense_reward: bool = False      # CustomO2ARCEnv shaping
     pixel_reward: bool = False      # paper §4.1: -(incorrect/total)
     terminate_on_match: bool = False
+    augment: bool = False           # reset-time rot90 + recolour (meta.py)
     reset_pool: int = 0
     opts: ResetOptions = dataclasses.field(
         default_factory=lambda: ResetOptions.make())
+
+    def __post_init__(self):
+        # the options live beside the bank: a blocking host-to-device copy
+        # waits for the stream, so options left on the host would make
+        # every auto-reset step wait for the device
+        object.__setattr__(self, "opts", self.opts.to(self.device))
 
     @property
     def device(self) -> torch.device:
         return self.bank.device
 
     def reset(self, generator: torch.Generator, batch: int) -> BatchedState:
-        env = reset(self.bank, generator, self.opts, batch, self.max_trial)
+        env = reset(self.bank, generator, self.opts, batch, self.max_trial,
+                    self.augment)
         pool = (make_reset_pool(self, generator, batch)
                 if self.reset_pool > 0 and self.auto_reset else None)
         return BatchedState(env=env, generator=generator, pool=pool)
@@ -227,7 +249,7 @@ class BatchedEnv:
                 bs.pool, counter=bs.pool.counter + done.to(I32))
         else:
             fresh = reset(self.bank, bs.generator, self.opts, B,
-                          self.max_trial)
+                          self.max_trial, self.augment)
             pool = None
         env3 = EnvState(**{
             f.name: torch.where(
@@ -239,13 +261,15 @@ class BatchedEnv:
 
 def make_reset_pool(env: BatchedEnv, generator: torch.Generator, batch: int,
                     k: Optional[int] = None) -> ResetPool:
-    """Draw ``k`` fresh (task, pair) rows per env slot in one batch; slot
+    """Draw ``k`` fresh (task, pair, augmentation) rows per env slot in one
+    batch; slot
     ``i``'s rows use its own per-env options, so task pinning holds."""
     k = env.reset_pool if k is None else k
     rows = env.opts.rows(batch, env.device)
     opts = ResetOptions(**{f.name: torch.repeat_interleave(
         getattr(rows, f.name), k) for f in dataclasses.fields(rows)})
-    fresh = reset(env.bank, generator, opts, batch * k, env.max_trial)
+    fresh = reset(env.bank, generator, opts, batch * k, env.max_trial,
+                  env.augment)
     return ResetPool(grid=fresh.grid, dim=fresh.grid_dim,
                      answer=fresh.answer, answer_dim=fresh.answer_dim,
                      counter=torch.zeros((batch,), dtype=I32,

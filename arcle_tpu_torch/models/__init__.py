@@ -1,0 +1,13 @@
+from .mlp import (
+    FCPolicy, obs_width, stack_padded_logits, gumbel_uniforms,
+    multi_categorical_sample, multi_categorical_log_prob,
+    multi_categorical_entropy,
+)
+from .convert import fcpolicy_state_dict_from_flax, adam_state_from_optax
+
+__all__ = [
+    "FCPolicy", "obs_width", "stack_padded_logits", "gumbel_uniforms",
+    "multi_categorical_sample", "multi_categorical_log_prob",
+    "multi_categorical_entropy", "fcpolicy_state_dict_from_flax",
+    "adam_state_from_optax",
+]

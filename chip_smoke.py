@@ -19,6 +19,17 @@ Phases, each printing its numbers on a line of its own:
               episode_limit=100, auto-reset from an 8-deep pool; 100 steps
               after a warm-up rollout, with the kernel's launch count,
               auto-reset and the checksum asserted;
+   learner -- the PPO learner at full width on the card against the same
+              learner on the CPU: one 2048-row batch from a short CUDA
+              rollout of the train configuration, the same weights; loss,
+              stats, every gradient and the params after one clip+Adam
+              step compared;
+   train   -- the training main path through ``run_ppo``: 4096 envs,
+              T=100, the full-width FCPolicy, one warm-up and 3 timed
+              iterations; 100 kernel launches per iteration, finite
+              losses, moving params, auto-resets and the TimeLimit
+              bootstrap asserted; ms/iter, env-steps/s including the
+              learner, the rollout / update split and the peak memory;
 6. timing  -- CUDA-event times of the kernel and of its plain version per
               step at B=4096, and of the 100-step loop through each.
 
@@ -29,8 +40,10 @@ non-zero and prints no result.  Without CUDA it exits with code 2.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -221,6 +234,153 @@ def phase_main(dev):
     return launches
 
 
+def train_config(device: str, n_envs: int, iterations: int):
+    """``bench.py::bench_train_loop``'s configuration: O2ARCv2 with CropGrid
+    at op 33, max_trial=127, episode_limit=100, dense reward,
+    augmentation, an 8-deep reset pool, SyntheticLoader(32, seed=7), the
+    full-width FCPolicy and PPOConfig() (one full-batch update)."""
+    from arcle_tpu_torch.utils import RunConfig, EnvConfig
+    return RunConfig(seed=0, algo="ppo", model="mlp",
+                     total_iterations=iterations, checkpoint_every=0,
+                     device=device,
+                     env=EnvConfig(family="o2arc_crop33", max_trial=127,
+                                   episode_limit=100, n_envs=n_envs,
+                                   dataset="synthetic", n_synthetic_tasks=32,
+                                   dense_reward=True, augment=True,
+                                   reset_pool=8),
+                     mlp_hidden=(1024, 1024, 512, 512, 256, 128))
+
+
+def phase_learner(dev):
+    """The learner on the card against the learner on the CPU, full width,
+    on one batch of 2048 rows from a short CUDA rollout."""
+    from arcle_tpu_torch.training import (
+        rollout, batch_from_trajectory, ppo_loss, train_step, make_optimizer)
+    from arcle_tpu_torch.training.train import setup_ppo
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("learner: float32 matmuls are not full float32 "
+                             "(TF32 is on)")
+    run = setup_ppo(train_config("cuda", 256, 1))
+    _, traj, last_v = rollout(run.env, run.bs, run.params, run.generator, 8,
+                              run.agent)
+    cfg = run.cfg.ppo
+    batch_g = batch_from_trajectory(traj, last_v, cfg)
+    batch_c = type(batch_g)(*(None if x is None else x.cpu()
+                              for x in batch_g))
+    pol_g = run.params
+    pol_c = copy.deepcopy(pol_g).cpu()
+
+    out = {}
+    for name, pol, batch in (("cuda", pol_g, batch_g), ("cpu", pol_c,
+                                                         batch_c)):
+        pol.zero_grad(set_to_none=True)
+        loss, stats = ppo_loss(pol, run.agent, batch, cfg)
+        loss.backward()
+        out[name] = ({k: v.detach().cpu() for k, v in stats.items()},
+                     {k: p.grad.detach().cpu()
+                      for k, p in pol.named_parameters()})
+    (st_g, gr_g), (st_c, gr_c) = out["cuda"], out["cpu"]
+    worst_grad = 0.0
+    for k in st_c:
+        torch.testing.assert_close(st_g[k], st_c[k], rtol=1e-4, atol=1e-6,
+                                   msg=f"learner: stat {k}")
+    for k in gr_c:
+        torch.testing.assert_close(gr_g[k], gr_c[k], rtol=1e-3, atol=1e-5,
+                                   msg=f"learner: grad {k}")
+        worst_grad = max(worst_grad, max_abs_diff(gr_g[k], gr_c[k]))
+    norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                         for g in gr_c.values()))
+
+    opts = {"cuda": run.opt, "cpu": make_optimizer(pol_c, cfg)}
+    for name, pol, batch in (("cuda", pol_g, batch_g), ("cpu", pol_c,
+                                                         batch_c)):
+        train_step(pol, opts[name], batch, None, run.agent, cfg)
+    worst_param = 0.0
+    sd_c = pol_c.state_dict()
+    for k, v in pol_g.state_dict().items():
+        torch.testing.assert_close(v.cpu(), sd_c[k], rtol=0, atol=1e-5,
+                                   msg=f"learner: param {k} after the step")
+        worst_param = max(worst_param, max_abs_diff(v.cpu(), sd_c[k]))
+    log(f"learner: cuda vs cpu, FCPolicy hidden={pol_g.hidden}, "
+        f"N={batch_g.obs.shape[0]} rows: loss {float(st_g['total_loss']):.6f}"
+        f" vs {float(st_c['total_loss']):.6f}, worst grad diff "
+        f"{worst_grad:.3e}, grad norm {norm:.4f} (clip at "
+        f"{cfg.max_grad_norm}: {'on' if norm >= cfg.max_grad_norm else 'off'}"
+        f"), worst param diff after clip+Adam {worst_param:.3e}; TF32 off")
+
+
+def phase_train(dev, card: str):
+    """``run_ppo`` at ``bench_train_loop``'s configuration: one warm-up and
+    three timed iterations."""
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.training.train import run_ppo, build_agent
+    from arcle_tpu_torch.utils import MetricLogger
+
+    iters, T = 4, 100
+    cfg = train_config("cuda", B, iters)
+    init = build_agent(cfg).init_fn(torch.Generator().manual_seed(cfg.seed))
+    rows = []
+
+    def on_iteration(i, run, traj, stats):
+        launches = step_kernel.LAUNCHES - sum(r["launches"] for r in rows)
+        if launches != T:
+            raise AssertionError(f"train: iteration {i} launched the step "
+                                 f"kernel {launches} times, not {T}")
+        loss = float(stats["total_loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"train: iteration {i} loss {loss}")
+        if not bool(traj.dones.any(0).all()):
+            raise AssertionError(f"train: iteration {i}: some envs never "
+                                 "auto-reset")
+        need = traj.dones & ~traj.terminated
+        if bool((traj.final_values[~need] != 0).any()):
+            raise AssertionError(f"train: iteration {i}: a final value "
+                                 "outside trunc & ~term")
+        if not bool((traj.final_values[need] != 0).any()):
+            raise AssertionError(f"train: iteration {i}: no bootstrap value")
+        rows.append(dict(loss=loss, launches=launches,
+                         rollout_ms=stats["rollout_ms"],
+                         update_ms=stats["update_ms"],
+                         host_rate=stats["env_steps_per_s"],
+                         resets=int(traj.dones.sum()),
+                         bootstraps=int(need.sum())))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_kernel.LAUNCHES = 0
+    pol = run_ppo(cfg, MetricLogger(None), on_iteration=on_iteration)
+    torch.cuda.synchronize()
+    launches = step_kernel.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if len(rows) != iters:
+        raise AssertionError(f"train: {len(rows)} iterations ran")
+    if all(torch.equal(a.cpu(), b) for a, b in
+           zip(pol.state_dict().values(), init.state_dict().values())):
+        raise AssertionError("train: the params did not change")
+    for i, r in enumerate(rows):
+        ms = r["rollout_ms"] + r["update_ms"]
+        log(f"train iter {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{r['loss']:.4f}, {ms:.1f} ms/iter = rollout "
+            f"{r['rollout_ms']:.1f} + update {r['update_ms']:.1f} ms "
+            f"(CUDA events), "
+            f"{B * T / ms * 1e3:,.0f} env-steps/s incl. learner; host clock "
+            f"{r['host_rate']:,.0f} env-steps/s incl. logging; "
+            f"{r['resets']} episode ends, {r['bootstraps']} bootstrapped "
+            f"({card})")
+    timed = rows[1:]
+    ms = sum(r["rollout_ms"] + r["update_ms"] for r in timed) / len(timed)
+    roll = sum(r["rollout_ms"] for r in timed) / len(timed)
+    log(f"train: {B} envs x T={T}, FCPolicy hidden={pol.hidden}, "
+        f"{len(timed)} timed iterations: "
+        f"{ms:.1f} ms/iter, {B * T / ms * 1e3:,.0f} env-steps/s incl. "
+        f"learner, rollout {roll / ms:.1%} / update {1 - roll / ms:.1%}, "
+        f"peak memory {peak_gb:.2f} GiB, {launches} kernel launches in "
+        f"{iters} iterations ({card})")
+    return launches
+
+
 def _event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -315,14 +475,17 @@ def main() -> int:
 
     worst = phase_parity(dev)
     phase_engine(dev)
-    launches = phase_main(dev)
+    launches = {"main": phase_main(dev)}
+    phase_learner(dev)
+    launches["train"] = phase_train(dev, card)
     k_ms, p_ms = phase_timing(dev, card)
 
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
         "source": "arcle_tpu_torch/csrc/step_kernel.cu",
         "replaces": "arcle_tpu/ops/pallas_step.py:248",
-        "launches": launches, "max_abs_err": worst,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": worst,
         "ms": k_ms, "plain_ms": p_ms}]}
     print(json.dumps(kernels))
     print(card)

@@ -5,9 +5,9 @@ The two packages draw random numbers differently, so both start from the
 same state and reset pool (carried across from the JAX package) or from
 pinned task indices, and take the same actions, made from a seed with
 numpy.  Carry, obs, terminated and truncated are bit-exact across
-auto-resets; the reward too, except for the float32 shaped rewards
-(``dense_reward``, ``pixel_reward``), compared with rtol=1e-6 because XLA
-may fuse their float operations in another order.
+auto-resets, augmented ones included; the reward too, except for the
+float32 shaped rewards (``dense_reward``, ``pixel_reward``), compared with
+rtol=1e-6 because XLA may fuse their float operations in another order.
 """
 
 import dataclasses
@@ -95,6 +95,8 @@ CASES = {
     # drawn start and pool, carried across from the JAX package
     "pool": (True, {}),
     "pool_pixel": (True, {"pixel_reward": True}),
+    # the train loop's env: augmented resets and pool, dense reward
+    "pool_augment_dense": (True, {"augment": True, "dense_reward": True}),
     # pinned indices: auto-reset without a pool is deterministic
     "pinned_dense_match": (False, {"dense_reward": True,
                                    "terminate_on_match": True}),
