@@ -1,4 +1,4 @@
-// One whole O2ARC / ARC / Raw env transition per thread block, for Hopper.
+// One whole O2ARC / ARC / Raw env transition per warp, for Hopper.
 //
 // Replaces the TPU Pallas megakernel arcle_tpu/ops/pallas_step.py::_step_kernel
 // (launched through pl.pallas_call in _step_impl).  It computes what the JAX
@@ -6,32 +6,53 @@
 // by finish_flood), bit for bit, and folds the reward / bookkeeping epilogue
 // in: steps, last_action_op, last_reward, submit_count, terminated.
 //
-// Design.  One block of 256 threads owns one env; each thread owns the cells
-// tid, tid+256, tid+512, tid+768 of the flat [H*W] grid (H*W <= 1024).  The
-// op, and so the group, is uniform across the block, so the block runs only
-// the branch of its env's group instead of every candidate.  The grid and the
-// selection sit in shared memory, together with the scratch buffers of the
-// object transform and the flood mask (about 8 KB).
-//   * Selection reductions (any, total, bbox, argmax) are warp reductions
-//     (__reduce_*_sync) followed by one pass over the 8 warps' partials.
-//   * Placements are direct index arithmetic: the value at (r, c) is
-//     patch[(r - x) mod H][(c - y) mod W] inside the window.  rot90 / rot270 /
-//     flipH / flipV / transposes are index maps followed by the re-anchor
-//     roll, reproducing the JAX package's whole 30x30 buffer (not only the
-//     window).  No matmuls, no permutation matrices.
-//   * FLOOD finishes the component exactly: a 4-neighbour relaxation in shared
-//     memory repeated until __syncthreads_or reports no change, so `pending`
-//     is always false and no batch-level fix-up follows on the GPU.
+// What bounds it on an H100.  An env-step reads the grid and the selection,
+// the fields its op leaves alone (to copy them through) and, for a few ops,
+// `input`, `answer` or the stored object, and writes 6 grids: about 10.2 KB
+// at 30x30 under the uniform O2ARCv2 mix with random bbox actions, some
+// 42 MB per launch at B=4096, about 12.5 us at 3.35 TB/s.  The arithmetic is
+// a few dozen integer operations per cell.  So the kernel is bound by memory,
+// provided enough bytes are in flight and no barrier chain or serial loop
+// sits between the loads and the stores; the object ops, whose cells go
+// through index maps, are the slowest warps of a launch.
+//
+// Design.
+//   * One warp per env, kEnvsPerBlock envs per block, no block barrier at
+//     all: the op, and so the branch, is uniform across the warp, and every
+//     reduction is a warp reduction (__reduce_*_sync, __any_sync).  The
+//     selection statistics (any, total, max, first index of the max, bbox)
+//     come from one pass over the selection and one round of reductions.
+//     32 warps per SM are resident, so B=4096 runs in one wave on 132 SMs.
+//   * The op is read first.  Every row the op reads at scattered indices
+//     (grid, selection, and per group clip, input, answer) is then
+//     requested at once with 4-byte cp.async copies into the warp's shared
+//     rows; the rows only the selection's statistics call for (a stored
+//     object that moves on, the input of a Copy) follow them, so no row is
+//     read that the op does not use.  The rows the op leaves alone are
+//     copied through at the end, 8 words per lane in flight before the
+//     first store.  Each lane moves whole 4-cell words, so a warp instruction
+//     moves 128 contiguous bytes.  (A 900-byte env row starts on a 4-byte
+//     boundary only, which rules out 16-byte bulk copies of a single env.)
+//   * Geometry is a template parameter: 30x30 and 5x5 are compiled with
+//     constant H and W, so c / W and the floor-mods become multiplies; one
+//     cell-wide instantiation with runtime H, W takes any other
+//     H*W <= 1024.
+//   * FLOOD finishes the component exactly, as a bitboard: lane r holds row
+//     r as a 32-bit mask (H, W <= 32).  A round spreads the front along each
+//     row in O(1) with the carry trick on the region mask (and its bit
+//     reverse), then one row up and down by shuffles, until __all_sync sees
+//     no change, so the rounds count the path's vertical turns.  Grids wider
+//     or taller than 32 keep a relaxation over a shared-memory mask.
+//     `pending` is always false and no batch-level fix-up follows.
+//   * OBJECT runs three passes over shared buffers: the buffers from the
+//     selection, the transformed buffers (rot90 / rot270 / flips are index
+//     maps followed by the re-anchor roll, transform_src, reproducing the
+//     JAX package's whole buffer, not only the window), and their placement:
+//     the value at (r, c) is patch[(r - x) mod H][(c - y) mod W] inside the
+//     window.
 //   * All arithmetic on int8 state is done in int and cast to int8 on the
 //     store (wraparound as in the reference); floor division and modulo of
 //     possibly negative values go through floordiv / floormod.
-//
-// What bounds it on an H100.  Each env-step reads 9 int8 grids and writes 6
-// (about 13.5 KB at 30x30) plus a few dozen bytes of scalars: at B=4096 that
-// is about 55 MB, some 17 us at 3.35 TB/s.  The work per cell is a handful of
-// integer operations.  So the kernel is bound by latency (the barriers of the
-// reductions and, for flood fills, of the relaxation loop) and by launch
-// overhead, not by bandwidth or arithmetic.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared library
 // with a plain C interface (ops/step_kernel.py loads it with ctypes).
@@ -42,10 +63,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kEnvsPerBlock = 4;                 // one warp per env
+constexpr int kThreads = 32 * kEnvsPerBlock;
+constexpr int kMinBlocksPerSM = 8;               // 32 resident warps per SM
+constexpr int kMinBlocksRuntime = 6;             // runtime H, W: no spills
 constexpr int kMaxCells = 1024;
-constexpr int kCellsPerThread = kMaxCells / kThreads;
+constexpr unsigned kFull = 0xffffffffu;
 
 // group codes (arcle_tpu/ops/groups.py::G)
 enum Group {
@@ -86,10 +109,101 @@ struct Params {
   int8_t* o_rotation_parity;
   int32_t* o_steps; int32_t* o_submit_count; int32_t* o_last_action_op;
   float* o_reward; bool* o_term; bool* o_pending;
-  // static facts.  Per-group facts of the table (has flood, object kinds)
-  // need no flags: each block branches on its own env's group.
-  int H, W, n_ops, max_trial, submit_op;
+  int B, H, W, n_ops, max_trial, submit_op;
 };
+
+// A word of V cells: 4 cells in a uint32 where the row length allows it,
+// else one cell.
+template <int V> struct Word;
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<1> { using T = uint8_t; };
+
+template <int V>
+__device__ __forceinline__ int cell(typename Word<V>::T w, int b) {
+  return static_cast<int8_t>(static_cast<uint8_t>(w >> (8 * b)));
+}
+
+template <int V>
+__device__ __forceinline__ typename Word<V>::T put(typename Word<V>::T w,
+                                                   int b, int v) {
+  using T = typename Word<V>::T;
+  return static_cast<T>(w | (static_cast<uint32_t>(static_cast<uint8_t>(v))
+                             << (8 * b)));
+}
+
+template <int V>
+__device__ __forceinline__ typename Word<V>::T ldw(const int8_t* row, int w) {
+  return reinterpret_cast<const typename Word<V>::T*>(row)[w];
+}
+
+template <int V>
+__device__ __forceinline__ void stw(int8_t* row, int w,
+                                    typename Word<V>::T v) {
+  reinterpret_cast<typename Word<V>::T*>(row)[w] = v;
+}
+
+// 4-byte asynchronous copy global -> shared (completes at async_wait_all).
+__device__ __forceinline__ void async_copy4(int8_t* dst, const int8_t* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+#else
+  *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
+#endif
+}
+
+__device__ __forceinline__ void async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Request one env row of n_words words into shared memory.
+template <int V>
+__device__ __forceinline__ void stage(int8_t* dst, const int8_t* src,
+                                      int n_words, int lane) {
+  for (int w = lane; w < n_words; w += 32) {
+    if (V == 4) async_copy4(dst + 4 * w, src + 4 * w);
+    else dst[w] = src[w];
+  }
+}
+
+// Copy one env row through (or zero it), word by word: each lane loads up
+// to kChunk words before it stores any, since a store to `dst` might alias
+// `src` and would otherwise hold every next load back.
+template <int V>
+__device__ __forceinline__ void copy_row(int8_t* dst, const int8_t* src,
+                                         bool zero, int n_words, int lane) {
+  using T = typename Word<V>::T;
+  constexpr int kChunk = 8;
+  for (int w0 = lane; w0 < n_words; w0 += 32 * kChunk) {
+    T v[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int w = w0 + 32 * k;
+      v[k] = (!zero && w < n_words) ? ldw<V>(src, w) : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int w = w0 + 32 * k;
+      if (w < n_words) stw<V>(dst, w, v[k]);
+    }
+  }
+}
+
+// Write one env row whose cell c is f(c).
+template <int V, class F>
+__device__ __forceinline__ void emit(int8_t* dst, int n_words, int lane,
+                                     F f) {
+  using T = typename Word<V>::T;
+  for (int w = lane; w < n_words; w += 32) {
+    T out = 0;
+#pragma unroll
+    for (int b = 0; b < V; ++b) out = put<V>(out, b, f(w * V + b));
+    stw<V>(dst, w, out);
+  }
+}
 
 __device__ __forceinline__ int floordiv(int a, int b) {
   int q = a / b;
@@ -101,222 +215,285 @@ __device__ __forceinline__ int floormod(int a, int b) {
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
 }
 
-// Block-wide reductions.  Every thread gets the result.  `scratch` holds
-// kWarps ints; the trailing barrier lets the caller reuse it at once.
-__device__ __forceinline__ int block_min(int v, int* scratch) {
-  v = __reduce_min_sync(0xffffffffu, v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int r = lane < kWarps ? scratch[lane] : INT_MAX;
-  r = __reduce_min_sync(0xffffffffu, r);
-  __syncthreads();
-  return r;
+// Cells of row `f` reachable from its set bits through set bits of
+// `region` towards the high bits (f is a subset of region): the carry of
+// region + f runs through each run of region above a bit of f.
+__device__ __forceinline__ uint32_t spread_up(uint32_t f, uint32_t region) {
+  return (((region + f) ^ region) & region) | f;
 }
 
-__device__ __forceinline__ int block_max(int v, int* scratch) {
-  v = __reduce_max_sync(0xffffffffu, v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int r = lane < kWarps ? scratch[lane] : INT_MIN;
-  r = __reduce_max_sync(0xffffffffu, r);
-  __syncthreads();
-  return r;
+__device__ __forceinline__ uint32_t spread_row(uint32_t f, uint32_t region) {
+  const uint32_t up = spread_up(f, region);
+  const uint32_t down = __brev(spread_up(__brev(f), __brev(region)));
+  return up | down;
 }
 
-__device__ __forceinline__ int block_sum(int v, int* scratch) {
-  v = __reduce_add_sync(0xffffffffu, v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int r = lane < kWarps ? scratch[lane] : 0;
-  r = __reduce_add_sync(0xffffffffu, r);
-  __syncthreads();
-  return r;
-}
+__device__ __forceinline__ int wrap(int v, int n) { return v >= n ? v - n : v; }
 
 // Source cell of the object transform `kind` for output cell (i, j) of a
 // square H x W buffer whose patch is h x w (pre-transform dims).  Matches
 // arcle_tpu/ops/groups.py::_transform_buffer: the jnp rot90 / flip followed
-// by a roll of (w - W) or (h - H) along one axis.
-__device__ __forceinline__ int transform_src(int kind, int i, int j, int h,
-                                             int w, int H, int W) {
+// by a roll of (w - W) or (h - H) along one axis; the rolls come in as
+// wH = (W - w) mod H, wW = (W - w) mod W, hH = (H - h) mod H and
+// hW = (H - h) mod W.
+__device__ __forceinline__ int transform_src(int kind, int i, int j, int wH,
+                                             int wW, int hH, int hW, int H,
+                                             int W) {
   switch (kind) {
     case ROT_90:   // R[i][j] = buf[j][W-1-i], rolled by w-W along rows
-      return j * W + (W - 1 - floormod(i - (w - W), H));
+      return j * W + (W - 1 - wrap(i + wH, H));
     case ROT_270:  // R[i][j] = buf[H-1-j][i], rolled by h-H along columns
-      return (H - 1 - floormod(j - (h - H), W)) * W + i;
+      return (H - 1 - wrap(j + hW, W)) * W + i;
     case FLIP_H:   // buf[i][W-1-j], rolled by w-W along columns
-      return i * W + (W - 1 - floormod(j - (w - W), W));
+      return i * W + (W - 1 - wrap(j + wW, W));
     case FLIP_V:   // buf[H-1-i][j], rolled by h-H along rows
-      return (H - 1 - floormod(i - (h - H), H)) * W + j;
+      return (H - 1 - wrap(i + hH, H)) * W + j;
     case FLIP_D0:  // transpose
       return j * W + i;
-    case FLIP_D1: {  // rot180 then transpose, rolled by w-W (rows), h-H (cols)
-      const int a = floormod(i - (w - W), H), c = floormod(j - (h - H), W);
-      return (H - 1 - c) * W + (W - 1 - a);
-    }
+    case FLIP_D1:  // rot180 then transpose, rolled by w-W (rows), h-H (cols)
+      return (H - 1 - wrap(j + hW, W)) * W + (W - 1 - wrap(i + wH, H));
     default:       // moves keep the buffer
       return i * W + j;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-step_kernel(const Params p) {
-  __shared__ int8_t s_grid[kMaxCells];
-  __shared__ int8_t s_sel[kMaxCells];
-  __shared__ int8_t s_buf_a[kMaxCells];   // object buffer (pre-transform)
-  __shared__ int8_t s_buf_b[kMaxCells];   // object_sel buffer (pre-transform)
-  __shared__ int8_t s_buf_c[kMaxCells];   // object buffer (transformed)
-  __shared__ int8_t s_buf_d[kMaxCells];   // object_sel buffer (transformed)
-  __shared__ int8_t s_flood[kMaxCells];
-  __shared__ int s_red[kWarps];
+// A warp's shared rows: `aux0` / `aux1` / `aux2` hold what the op reads
+// besides grid and selection (object, object_sel and background; clip;
+// input and answer); `objc` / `objd` the transformed object buffers;
+// `rows` the flood component as row masks.
+template <int PP>
+struct alignas(16) EnvRows {
+  int8_t grid[PP];
+  int8_t sel[PP];
+  int8_t aux0[PP];
+  int8_t aux1[PP];
+  int8_t aux2[PP];
+  int8_t objc[PP];
+  int8_t objd[PP];
+  uint32_t rows[32];
+};
 
-  const int env = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int H = p.H, W = p.W, P = H * W;
+template <int H_, int W_, int V>
+__global__ void __launch_bounds__(kThreads,
+                                  H_ ? kMinBlocksPerSM : kMinBlocksRuntime)
+step_kernel(const Params p) {
+  constexpr int PP = H_ ? ((H_ * W_ + 15) / 16) * 16 : kMaxCells;
+  __shared__ EnvRows<PP> smem[kEnvsPerBlock];
+  using T = typename Word<V>::T;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int env = blockIdx.x * kEnvsPerBlock + warp;
+  if (env >= p.B) return;                 // the ragged last block
+  EnvRows<PP>& s = smem[warp];
+  const int H = H_ ? H_ : p.H, W = H_ ? W_ : p.W, P = H * W;
+  const int NW = P / V;
   const size_t gbase = static_cast<size_t>(env) * P;
   const int d = 2 * env;
 
-  // ---- per-env scalars and the op-table lookup ----
+  // ---- the op first, then every grid it reads, all in flight at once ----
   int op = p.operation[env];
   op = op < 0 ? 0 : (op > p.n_ops - 1 ? p.n_ops - 1 : op);
   const int grp = p.table[op];
   const int par = p.table[p.n_ops + op];
   const int rs = p.table[2 * p.n_ops + op];
-
+  const int trials = p.trials_remain[env];
+  const int active0 = rs ? 0 : p.active[env];   // reset_sel decorator
+  const int ros = p.reset_on_submit[env];
+  const bool sub_ros = grp == SUBMIT && trials != 0 && ros != 0;
   const int gh = p.grid_dim[d], gw = p.grid_dim[d + 1];
   const int ih = p.input_dim[d], iw = p.input_dim[d + 1];
   const int ah = p.answer_dim[d], aw = p.answer_dim[d + 1];
   const int ch = p.clip_dim[d], cw = p.clip_dim[d + 1];
   const int oh = p.object_dim[d], ow = p.object_dim[d + 1];
   const int ox = p.object_pos[d], oy = p.object_pos[d + 1];
-  const int trials = p.trials_remain[env];
   const int term = p.terminated[env];
-  const int active0 = rs ? 0 : p.active[env];   // reset_sel decorator
   const int parity = p.rotation_parity[env];
-  const int ros = p.reset_on_submit[env];
+  const int steps0 = p.steps[env], submits0 = p.submit_count[env];
 
-  // ---- stage the grid and the selection; selection reductions ----
-  int any = 0, total = 0, maxv = INT_MIN;
-  int rmin = INT_MAX, rmax = -1, cmin = INT_MAX, cmax = -1;
-  for (int k = 0; k < kCellsPerThread; ++k) {
-    const int c = tid + k * kThreads;
-    if (c >= P) break;
-    const int8_t gv = p.grid[gbase + c];
-    const int8_t sv = p.selection[gbase + c];
-    s_grid[c] = gv;
-    s_sel[c] = sv;
-    total += sv;
-    maxv = max(maxv, static_cast<int>(sv));
-    if (sv != 0) {
-      const int r = c / W, col = c - r * W;
-      any = 1;
-      rmin = min(rmin, r); rmax = max(rmax, r);
-      cmin = min(cmin, col); cmax = max(cmax, col);
-    }
+  const bool need_sel = grp == COLOR || grp == FLOOD || grp == OBJECT ||
+                        grp == COPY || grp == PASTE || grp == RESIZE_GRID ||
+                        grp == CROP_GRID;
+  // RESIZE_GRID zeroes the grid under a selection, or else copies it
+  // through from global memory; a re-initialising Submit replaces it
+  const bool need_grid = grp != COPY_FROM_INPUT && grp != RESET_GRID &&
+                         grp != RESIZE_GRID && !sub_ros;
+  if (need_grid) stage<V>(s.grid, p.grid + gbase, NW, lane);
+  if (need_sel) stage<V>(s.sel, p.selection + gbase, NW, lane);
+  if (grp == PASTE) {
+    stage<V>(s.aux0, p.clip + gbase, NW, lane);
+  } else if (grp == SUBMIT) {               // aux0: the input, aux1: answer
+    if (sub_ros) stage<V>(s.aux0, p.input + gbase, NW, lane);
+    stage<V>(s.aux1, p.answer + gbase, NW, lane);
   }
-  any = block_max(any, s_red);
-  total = block_sum(total, s_red);
-  maxv = block_max(maxv, s_red);
-  rmin = block_min(rmin, s_red);
-  rmax = block_max(rmax, s_red);
-  cmin = block_min(cmin, s_red);
-  cmax = block_max(cmax, s_red);
+
+  async_wait_all();
+  __syncwarp();
+
+  // ---- selection statistics: one pass, one round of warp reductions ----
+  int any = 0, total = 0, maxv = INT_MIN, maxi = INT_MAX;
+  int rmin = INT_MAX, rmax = -1, cmin = INT_MAX, cmax = -1;
+  if (need_sel) {
+    for (int w = lane; w < NW; w += 32) {
+      const T word = ldw<V>(s.sel, w);
+      if (word == 0) {                    // V empty cells
+        if (maxv < 0) { maxv = 0; maxi = w * V; }
+        continue;
+      }
+#pragma unroll
+      for (int b = 0; b < V; ++b) {
+        const int c = w * V + b, v = cell<V>(word, b);
+        total += v;
+        if (v > maxv) { maxv = v; maxi = c; }
+        if (v != 0) {
+          const int r = c / W, col = c - r * W;
+          any = 1;
+          rmin = min(rmin, r); rmax = max(rmax, r);
+          cmin = min(cmin, col); cmax = max(cmax, col);
+        }
+      }
+    }
+    any = __any_sync(kFull, any);
+    total = __reduce_add_sync(kFull, total);
+    const int lane_max = maxv;
+    maxv = __reduce_max_sync(kFull, maxv);
+    maxi = __reduce_min_sync(kFull, lane_max == maxv ? maxi : INT_MAX);
+    rmin = __reduce_min_sync(kFull, rmin);
+    rmax = __reduce_max_sync(kFull, rmax);
+    cmin = __reduce_min_sync(kFull, cmin);
+    cmax = __reduce_max_sync(kFull, cmax);
+  }
   if (!any) { rmin = rmax = cmin = cmax = 0; }
   const int h_s = rmax - rmin + 1, w_s = cmax - cmin + 1;
-  // (the barriers inside the reductions also publish s_grid / s_sel)
+
+  // ---- the rows the selection decides on: a stored object that moves on
+  // (no selection), the input a Copy takes its selection from ----
+  const bool stored = grp == OBJECT && !any && active0;
+  // strictly-greater bound, as in the reference (object.py:301)
+  const bool copy_ok = grp == COPY && any &&
+                       !(rmax > (par == 0 ? ih : gh) ||
+                         cmax > (par == 0 ? iw : gw));
+  if (stored) {
+    stage<V>(s.aux0, p.object + gbase, NW, lane);
+    stage<V>(s.aux1, p.object_sel + gbase, NW, lane);
+    stage<V>(s.aux2, p.background + gbase, NW, lane);
+  } else if (copy_ok && par == 0) {
+    stage<V>(s.aux0, p.input + gbase, NW, lane);
+  }
+  if (stored || (copy_ok && par == 0)) {
+    async_wait_all();
+    __syncwarp();
+  }
 
   // Selection-shifted views: the grid / selection / input with the bbox
-  // corner moved to the origin (jnp roll semantics, so mod H / mod W).
+  // corner moved to the origin (jnp roll semantics; 0 <= rmin < H).
   auto shifted = [&](int c) {
     const int r = c / W, col = c - r * W;
-    return floormod(r + rmin, H) * W + floormod(col + cmin, W);
+    return wrap(r + rmin, H) * W + wrap(col + cmin, W);
   };
-  auto in_sel_window = [&](int c) {
+  auto in_sel_window = [&](int c, int sc) {
     const int r = c / W, col = c - r * W;
-    return r < h_s && col < w_s && s_sel[shifted(c)] != 0;
+    return r < h_s && col < w_s && s.sel[sc] != 0;
   };
+  auto grid_of = [&](int c) { return static_cast<int>(s.grid[c]); };
 
   // outputs defaulting to the (decorated) pre-op state
   int n_gh = gh, n_gw = gw, n_ch = ch, n_cw = cw;
   int n_oh = oh, n_ow = ow, n_ox = ox, n_oy = oy;
   int n_active = active0, n_parity = parity;
   int n_trials = trials, n_term = term, submitted = 0, reward_match = 0;
-  // which grids besides `grid` this op replaces (block-uniform)
-  bool obj_ok = false, sub_ros = false, copy_ok = false;
+  // which grids besides `grid` this op replaces (warp-uniform)
+  bool obj_ok = false;
   int8_t* o_grid = p.o_grid + gbase;
 
   switch (grp) {
     case COLOR: {
-      const int8_t v = static_cast<int8_t>(par);
-      for (int c = tid; c < P; c += kThreads)
-        o_grid[c] = s_sel[c] != 0 ? v : s_grid[c];
+      emit<V>(o_grid, NW, lane, [&](int c) {
+        return s.sel[c] != 0 ? par : grid_of(c);
+      });
       break;
     }
     case FLOOD: {
       // seed: the first cell holding the selection's max (jnp.argmax)
-      int idx = INT_MAX;
-      for (int c = tid; c < P; c += kThreads)
-        if (s_sel[c] == maxv) idx = min(idx, c);
-      idx = block_min(idx, s_red);
-      const int px = idx / W, py = idx - px * W;
+      const int px = maxi / W, py = maxi - px * W;
       const bool valid = total == 1 && px < gh && py < gw;
       if (!valid) {
-        for (int c = tid; c < P; c += kThreads) o_grid[c] = s_grid[c];
+        copy_row<V>(o_grid, s.grid, false, NW, lane);
         break;
       }
-      const int8_t seed_color = s_grid[idx];
-      bool region[kCellsPerThread];
-      for (int k = 0; k < kCellsPerThread; ++k) {
-        const int c = tid + k * kThreads;
-        region[k] = false;
-        if (c < P) {
-          const int r = c / W, col = c - r * W;
-          region[k] = s_grid[c] == seed_color && r < gh && col < gw;
-          s_flood[c] = (c == idx && region[k]) ? 1 : 0;
+      const int seed = s.grid[maxi];
+      if (H <= 32 && W <= 32) {
+        // lane r owns row r of the region and of the component
+        uint32_t region = 0;
+        if (lane < H && lane < gh) {
+          for (int j = 0; j < W; ++j)
+            if (j < gw && s.grid[lane * W + j] == seed) region |= 1u << j;
         }
-      }
-      __syncthreads();
-      // relax until the component stops growing (exact; no pending)
-      volatile int8_t* fl = s_flood;
-      for (;;) {
-        int changed = 0;
-        for (int k = 0; k < kCellsPerThread; ++k) {
-          const int c = tid + k * kThreads;
-          if (c >= P || !region[k] || fl[c]) continue;
+        uint32_t f = lane == px ? (1u << py) : 0u;
+        for (;;) {
+          f = spread_row(f, region);
+          const uint32_t above = __shfl_up_sync(kFull, f, 1);
+          const uint32_t below = __shfl_down_sync(kFull, f, 1);
+          const uint32_t g = region & (f | above | below);
+          if (__all_sync(kFull, g == f)) break;
+          f = g;
+        }
+        s.rows[lane] = f;
+        __syncwarp();
+        emit<V>(o_grid, NW, lane, [&](int c) {
           const int r = c / W, col = c - r * W;
-          if ((r > 0 && fl[c - W]) || (r < H - 1 && fl[c + W]) ||
-              (col > 0 && fl[c - 1]) || (col < W - 1 && fl[c + 1])) {
-            fl[c] = 1;
-            changed = 1;
+          return (s.rows[r] >> col) & 1u ? par : grid_of(c);
+        });
+      } else {
+        // relax a shared-memory mask until the component stops growing
+        volatile int8_t* fl = s.aux0;
+        for (int c = lane; c < P; c += 32) fl[c] = c == maxi ? 1 : 0;
+        __syncwarp();
+        for (;;) {
+          int changed = 0;
+          for (int c = lane; c < P; c += 32) {
+            const int r = c / W, col = c - r * W;
+            if (fl[c] || s.grid[c] != seed || r >= gh || col >= gw) continue;
+            if ((r > 0 && fl[c - W]) || (r < H - 1 && fl[c + W]) ||
+                (col > 0 && fl[c - 1]) || (col < W - 1 && fl[c + 1])) {
+              fl[c] = 1;
+              changed = 1;
+            }
           }
+          __syncwarp();
+          if (!__any_sync(kFull, changed)) break;
         }
-        if (!__syncthreads_or(changed)) break;
+        emit<V>(o_grid, NW, lane, [&](int c) {
+          return fl[c] ? par : grid_of(c);
+        });
       }
-      const int8_t v = static_cast<int8_t>(par);
-      for (int c = tid; c < P; c += kThreads)
-        o_grid[c] = s_flood[c] ? v : s_grid[c];
       break;
     }
     case OBJECT: {
       const bool has_sel = any != 0;
       obj_ok = has_sel || active0 != 0;
       if (!obj_ok) {
-        for (int c = tid; c < P; c += kThreads) o_grid[c] = s_grid[c];
+        copy_row<V>(o_grid, s.grid, false, NW, lane);
         break;
       }
-      // _init_objsel: the buffers from the selection, or the stored ones
-      for (int c = tid; c < P; c += kThreads) {
-        if (has_sel) {
-          const bool in = in_sel_window(c);
-          s_buf_a[c] = in ? s_grid[shifted(c)] : 0;
-          s_buf_b[c] = in ? 1 : 0;
-        } else {
-          s_buf_a[c] = p.object[gbase + c];
-          s_buf_b[c] = p.object_sel[gbase + c];
+      // _init_objsel: the buffers from the selection into aux0 / aux1, or
+      // the stored ones, staged there already
+      int8_t* A = s.aux0;
+      int8_t* M = s.aux1;
+      if (has_sel) {
+        for (int wd = lane; wd < NW; wd += 32) {
+          T a_out = 0, m_out = 0;
+#pragma unroll
+          for (int b = 0; b < V; ++b) {
+            const int c = wd * V + b, sc = shifted(c);
+            const bool in = in_sel_window(c, sc);
+            a_out = put<V>(a_out, b, in ? grid_of(sc) : 0);
+            m_out = put<V>(m_out, b, in ? 1 : 0);
+          }
+          stw<V>(A, wd, a_out);
+          stw<V>(M, wd, m_out);
         }
+        __syncwarp();
       }
       const int x = has_sel ? rmin : ox, y = has_sel ? cmin : oy;
       const int h = has_sel ? h_s : oh, w = has_sel ? w_s : ow;
@@ -337,28 +514,55 @@ step_kernel(const Params p) {
       const int x2 = is_move ? x + dx : (is_rot ? x_rot : x);
       const int y2 = is_move ? y + dy : (is_rot ? y_rot : y);
       const int h2 = is_rot ? w : h, w2 = is_rot ? h : w;
-      __syncthreads();
-      for (int c = tid; c < P; c += kThreads) {
-        const int i = c / W, j = c - i * W;
-        const int src = transform_src(kind, i, j, h, w, H, W);
-        s_buf_c[c] = s_buf_a[src];
-        s_buf_d[c] = s_buf_b[src];
+      // the transformed buffers, whole (moves keep them as they are)
+      const int8_t* C = is_move ? A : s.objc;
+      const int8_t* D = is_move ? M : s.objd;
+      int8_t* o_obj = p.o_object + gbase;
+      int8_t* o_osel = p.o_object_sel + gbase;
+      if (is_move) {
+        copy_row<V>(o_obj, A, false, NW, lane);
+        copy_row<V>(o_osel, M, false, NW, lane);
+      } else {
+        const int wH = floormod(W - w, H), wW = floormod(W - w, W);
+        const int hH = floormod(H - h, H), hW = floormod(H - h, W);
+        for (int wd = lane; wd < NW; wd += 32) {
+          T c_out = 0, d_out = 0;
+#pragma unroll
+          for (int b = 0; b < V; ++b) {
+            const int c = wd * V + b, i = c / W, j = c - i * W;
+            const int src = transform_src(kind, i, j, wH, wW, hH, hW, H, W);
+            c_out = put<V>(c_out, b, A[src]);
+            d_out = put<V>(d_out, b, M[src]);
+          }
+          stw<V>(s.objc, wd, c_out);
+          stw<V>(s.objd, wd, d_out);
+          stw<V>(o_obj, wd, c_out);
+          stw<V>(o_osel, wd, d_out);
+        }
+        __syncwarp();
       }
-      __syncthreads();
-      // _apply_patch / _apply_sel: place the transformed buffers at (x2, y2)
-      for (int c = tid; c < P; c += kThreads) {
-        const int i = c / W, j = c - i * W;
-        const bool win = i >= x2 && i < x2 + h2 && j >= y2 && j < y2 + w2 &&
-                         i < gh && j < gw;
-        const int src = floormod(i - x2, H) * W + floormod(j - y2, W);
-        const int8_t vals = s_buf_c[src];
-        const int8_t bg = has_sel ? (s_sel[c] != 0 ? 0 : s_grid[c])
-                                  : p.background[gbase + c];
-        o_grid[c] = (win && vals != 0) ? vals : bg;
-        p.o_selected[gbase + c] = win ? s_buf_d[src] : 0;
-        p.o_object[gbase + c] = s_buf_c[c];
-        p.o_object_sel[gbase + c] = s_buf_d[c];
-        p.o_background[gbase + c] = bg;
+      // _apply_patch / _apply_sel: place them at (x2, y2)
+      const int xm = floormod(-x2, H), ym = floormod(-y2, W);
+      int8_t* o_sel = p.o_selected + gbase;
+      int8_t* o_bg = p.o_background + gbase;
+      for (int wd = lane; wd < NW; wd += 32) {
+        T g_out = 0, s_out = 0, bg_out = 0;
+#pragma unroll
+        for (int b = 0; b < V; ++b) {
+          const int c = wd * V + b, i = c / W, j = c - i * W;
+          const bool win = i >= x2 && i < x2 + h2 && j >= y2 &&
+                           j < y2 + w2 && i < gh && j < gw;
+          const int s2 = wrap(i + xm, H) * W + wrap(j + ym, W);
+          const int vals = C[s2];
+          const int bg = has_sel ? (s.sel[c] != 0 ? 0 : grid_of(c))
+                                 : static_cast<int>(s.aux2[c]);
+          g_out = put<V>(g_out, b, (win && vals != 0) ? vals : bg);
+          s_out = put<V>(s_out, b, win ? static_cast<int>(D[s2]) : 0);
+          bg_out = put<V>(bg_out, b, bg);
+        }
+        stw<V>(o_grid, wd, g_out);
+        stw<V>(o_sel, wd, s_out);
+        stw<V>(o_bg, wd, bg_out);
       }
       n_ox = x2; n_oy = y2; n_oh = h2; n_ow = w2;
       n_active = 1;
@@ -366,102 +570,96 @@ step_kernel(const Params p) {
       break;
     }
     case COPY: {
-      const bool from_input = par == 0;
-      const int src_h = from_input ? ih : gh, src_w = from_input ? iw : gw;
-      // strictly-greater bound, as in the reference (object.py:301)
-      copy_ok = any && !(rmax > src_h || cmax > src_w);
-      for (int c = tid; c < P; c += kThreads) {
-        o_grid[c] = s_grid[c];
-        if (copy_ok) {
+      copy_row<V>(o_grid, s.grid, false, NW, lane);
+      if (copy_ok) {
+        const int8_t* src = par == 0 ? s.aux0 : s.grid;
+        emit<V>(p.o_clip + gbase, NW, lane, [&](int c) {
           const int sc = shifted(c);
-          const int8_t src = from_input ? p.input[gbase + sc] : s_grid[sc];
-          p.o_clip[gbase + c] = (in_sel_window(c) && src != 0) ? src : 0;
-        }
+          const int v = src[sc];
+          return (in_sel_window(c, sc) && v != 0) ? v : 0;
+        });
+        n_ch = h_s; n_cw = w_s;
       }
-      if (copy_ok) { n_ch = h_s; n_cw = w_s; }
       break;
     }
     case PASTE: {
       const bool valid = any && ch != 0 && cw != 0;
       const bool blank = par != 0;
-      for (int c = tid; c < P; c += kThreads) {
+      emit<V>(o_grid, NW, lane, [&](int c) {
         const int i = c / W, j = c - i * W;
-        int8_t out = s_grid[c];
+        int out = grid_of(c);
         if (valid && i >= rmin && i < rmin + ch && j >= cmin &&
             j < cmin + cw) {
-          const int8_t v =
-              p.clip[gbase + floormod(i - rmin, H) * W + floormod(j - cmin, W)];
+          const int v = s.aux0[floormod(i - rmin, H) * W +
+                               floormod(j - cmin, W)];
           if (blank || v != 0) out = v;
         }
-        o_grid[c] = out;
-      }
+        return out;
+      });
       break;
     }
     case COPY_FROM_INPUT: {
-      for (int c = tid; c < P; c += kThreads) o_grid[c] = p.input[gbase + c];
+      copy_row<V>(o_grid, p.input + gbase, false, NW, lane);
       n_gh = ih; n_gw = iw;
       break;
     }
     case RESET_GRID: {
-      for (int c = tid; c < P; c += kThreads) o_grid[c] = 0;
+      copy_row<V>(o_grid, nullptr, true, NW, lane);
       break;
     }
     case RESIZE_GRID: {
-      for (int c = tid; c < P; c += kThreads) o_grid[c] = any ? 0 : s_grid[c];
+      copy_row<V>(o_grid, p.grid + gbase, any != 0, NW, lane);
       if (any) { n_gh = h_s; n_gw = w_s; }
       break;
     }
     case CROP_GRID: {
-      for (int c = tid; c < P; c += kThreads) {
-        int8_t out = s_grid[c];
-        if (any) {
-          const int8_t v = s_grid[shifted(c)];
-          out = (in_sel_window(c) && v != 0) ? v : 0;
-        }
-        o_grid[c] = out;
+      if (any) {
+        emit<V>(o_grid, NW, lane, [&](int c) {
+          const int sc = shifted(c);
+          const int v = grid_of(sc);
+          return (in_sel_window(c, sc) && v != 0) ? v : 0;
+        });
+        n_gh = h_s; n_gw = w_s;
+      } else {
+        copy_row<V>(o_grid, s.grid, false, NW, lane);
       }
-      if (any) { n_gh = h_s; n_gw = w_s; }
       break;
     }
     case RESIZE_TO_ANSWER: {
-      for (int c = tid; c < P; c += kThreads) {
+      emit<V>(o_grid, NW, lane, [&](int c) {
         const int r = c / W, col = c - r * W;
-        o_grid[c] = (r < ah && col < aw) ? s_grid[c] : 0;
-      }
+        return (r < ah && col < aw) ? grid_of(c) : 0;
+      });
       n_gh = ah; n_gw = aw;
       break;
     }
     case SUBMIT: {
-      // answers_match of the pre-op grid and of the fresh grid (the input)
-      int wrong = 0, wrong_fresh = 0;
-      for (int c = tid; c < P; c += kThreads) {
+      // answers_match of the grid the reward reads: the fresh grid (the
+      // input) on a re-initialising Submit, else the pre-op grid
+      const int8_t* seen = sub_ros ? s.aux0 : s.grid;
+      const int sh = sub_ros ? ih : gh, sw = sub_ros ? iw : gw;
+      int wrong = 0;
+      for (int c = lane; c < P; c += 32) {
         const int r = c / W, col = c - r * W;
-        if (r < ah && col < aw) {
-          const int8_t a = p.answer[gbase + c];
-          wrong |= s_grid[c] != a;
-          wrong_fresh |= p.input[gbase + c] != a;
-        }
+        if (r < ah && col < aw) wrong |= seen[c] != s.aux1[c];
       }
-      wrong = __syncthreads_or(wrong);
-      wrong_fresh = __syncthreads_or(wrong_fresh);
-      const bool match = gh == ah && gw == aw && !wrong;
-      const bool fresh_match = ih == ah && iw == aw && !wrong_fresh;
+      wrong = __any_sync(kFull, wrong);
+      const bool match = sh == ah && sw == aw && !wrong;
       const bool can = trials != 0;
       submitted = can;
-      sub_ros = can && ros != 0;
-      reward_match = sub_ros ? fresh_match : match;
+      reward_match = match;
       if (sub_ros) {
         // init_state: the grid is the input, zeroed outside input_dim
-        for (int c = tid; c < P; c += kThreads) {
+        emit<V>(o_grid, NW, lane, [&](int c) {
           const int r = c / W, col = c - r * W;
-          o_grid[c] = (r < ih && col < iw) ? p.input[gbase + c] : 0;
-        }
+          return (r < ih && col < iw) ? static_cast<int>(s.aux0[c]) : 0;
+        });
         n_gh = ih; n_gw = iw; n_ch = n_cw = 0;
         n_oh = n_ow = n_ox = n_oy = 0;
         n_active = 0; n_parity = 0;
         n_trials = p.max_trial; n_term = 0;
       } else {
-        for (int c = tid; c < P; c += kThreads) o_grid[c] = s_grid[c];
+        copy_row<V>(o_grid, s.grid, false, NW, lane);
         const int trials2 = static_cast<int8_t>(can ? trials - 1 : trials);
         n_trials = trials2;
         n_term = trials2 == 0 ? 1 : ((can && match) ? 1 : term);
@@ -469,25 +667,27 @@ step_kernel(const Params p) {
       break;
     }
     default: {  // NOOP
-      for (int c = tid; c < P; c += kThreads) o_grid[c] = s_grid[c];
+      copy_row<V>(o_grid, s.grid, false, NW, lane);
       break;
     }
   }
 
   // ---- the grids this op left alone ----
-  for (int c = tid; c < P; c += kThreads) {
-    const size_t g = gbase + c;
-    if (!obj_ok) {
-      p.o_selected[g] = (sub_ros || rs) ? 0 : p.selected[g];
-      p.o_object[g] = sub_ros ? 0 : p.object[g];
-      p.o_object_sel[g] = sub_ros ? 0 : p.object_sel[g];
-      p.o_background[g] = sub_ros ? 0 : p.background[g];
-    }
-    if (!copy_ok) p.o_clip[g] = sub_ros ? 0 : p.clip[g];
+  if (!obj_ok) {
+    copy_row<V>(p.o_selected + gbase, p.selected + gbase, sub_ros || rs, NW,
+                lane);
+    copy_row<V>(p.o_object + gbase, p.object + gbase, sub_ros, NW, lane);
+    copy_row<V>(p.o_object_sel + gbase, p.object_sel + gbase, sub_ros, NW,
+                lane);
+    copy_row<V>(p.o_background + gbase, p.background + gbase, sub_ros, NW,
+                lane);
   }
+  if (!copy_ok)
+    copy_row<V>(p.o_clip + gbase, grp == PASTE ? s.aux0 : p.clip + gbase,
+                sub_ros, NW, lane);
 
   // ---- scalars and the epilogue ----
-  if (tid == 0) {
+  if (lane == 0) {
     p.o_grid_dim[d] = static_cast<int8_t>(n_gh);
     p.o_grid_dim[d + 1] = static_cast<int8_t>(n_gw);
     p.o_clip_dim[d] = static_cast<int8_t>(n_ch);
@@ -500,8 +700,8 @@ step_kernel(const Params p) {
     p.o_rotation_parity[env] = static_cast<int8_t>(n_parity);
     p.o_trials_remain[env] = static_cast<int8_t>(n_trials);
     p.o_terminated[env] = static_cast<int8_t>(n_term);
-    p.o_submit_count[env] = p.submit_count[env] + submitted;
-    p.o_steps[env] = p.steps[env] + 1;
+    p.o_submit_count[env] = submits0 + submitted;
+    p.o_steps[env] = steps0 + 1;
     p.o_last_action_op[env] = op;
     const float reward = (op == p.submit_op && reward_match) ? 1.0f : 0.0f;
     p.o_reward[env] = reward;
@@ -510,14 +710,49 @@ step_kernel(const Params p) {
   }
 }
 
+template <int H_, int W_, int V>
+int launch(const Params& p, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {      // all of the SM's shared memory for 8 blocks
+    const cudaError_t err = cudaFuncSetAttribute(
+        step_kernel<H_, W_, V>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int blocks = (p.B + kEnvsPerBlock - 1) / kEnvsPerBlock;
+  step_kernel<H_, W_, V><<<blocks, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int H_, int W_, int V>
+int resident_warps() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, step_kernel<H_, W_, V>, kThreads, 0) != cudaSuccess)
+    return -1;
+  return blocks * kEnvsPerBlock;
+}
+
 }  // namespace
 
-// Plain C entry point.  `in` and `out` are host arrays of device pointers in
-// the order of Params (24 inputs, 20 outputs).  Launches on `stream` and
+// Warps (envs) of the instantiation for H x W that one SM holds at once,
+// or -1 on error.
+extern "C" int arcle_step_resident_warps(int H, int W) {
+  if (H == 30 && W == 30) return resident_warps<30, 30, 4>();
+  if (H == 5 && W == 5) return resident_warps<5, 5, 1>();
+  return resident_warps<0, 0, 1>();
+}
+
+// Plain C entry point.  `in` is a host array of the 24 input device pointers
+// in the order of Params; the 20 outputs lie in one device arena at `out`,
+// output k at byte offset out_offsets[k], in the order of Params.  At 30x30
+// the grids must start on 4-byte boundaries.  Launches on `stream` and
 // returns cudaGetLastError() of the launch.
-extern "C" int arcle_step_launch(const void* const* in, void* const* out,
-                                 int B, int H, int W, int n_ops,
-                                 int max_trial, int submit_op, void* stream) {
+extern "C" int arcle_step_launch(const void* const* in, void* out,
+                                 const int64_t* out_offsets, int B, int H,
+                                 int W, int n_ops, int max_trial,
+                                 int submit_op, void* stream) {
   Params p;
   const int8_t* const* i8 = reinterpret_cast<const int8_t* const*>(in);
   p.grid = i8[0]; p.input = i8[1]; p.answer = i8[2]; p.selected = i8[3];
@@ -532,25 +767,28 @@ extern "C" int arcle_step_launch(const void* const* in, void* const* out,
   p.operation = static_cast<const int32_t*>(in[22]);
   p.table = static_cast<const int32_t*>(in[23]);
 
-  int8_t* const* o8 = reinterpret_cast<int8_t* const*>(out);
-  p.o_grid = o8[0]; p.o_selected = o8[1]; p.o_clip = o8[2];
-  p.o_object = o8[3]; p.o_object_sel = o8[4]; p.o_background = o8[5];
-  p.o_grid_dim = o8[6]; p.o_clip_dim = o8[7]; p.o_object_dim = o8[8];
-  p.o_object_pos = o8[9];
-  p.o_trials_remain = o8[10]; p.o_terminated = o8[11]; p.o_active = o8[12];
-  p.o_rotation_parity = o8[13];
-  p.o_steps = static_cast<int32_t*>(out[14]);
-  p.o_submit_count = static_cast<int32_t*>(out[15]);
-  p.o_last_action_op = static_cast<int32_t*>(out[16]);
-  p.o_reward = static_cast<float*>(out[17]);
-  p.o_term = static_cast<bool*>(out[18]);
-  p.o_pending = static_cast<bool*>(out[19]);
+  int8_t* base = static_cast<int8_t*>(out);
+  int8_t* o[20];
+  for (int k = 0; k < 20; ++k) o[k] = base + out_offsets[k];
+  p.o_grid = o[0]; p.o_selected = o[1]; p.o_clip = o[2];
+  p.o_object = o[3]; p.o_object_sel = o[4]; p.o_background = o[5];
+  p.o_grid_dim = o[6]; p.o_clip_dim = o[7]; p.o_object_dim = o[8];
+  p.o_object_pos = o[9];
+  p.o_trials_remain = o[10]; p.o_terminated = o[11]; p.o_active = o[12];
+  p.o_rotation_parity = o[13];
+  p.o_steps = reinterpret_cast<int32_t*>(o[14]);
+  p.o_submit_count = reinterpret_cast<int32_t*>(o[15]);
+  p.o_last_action_op = reinterpret_cast<int32_t*>(o[16]);
+  p.o_reward = reinterpret_cast<float*>(o[17]);
+  p.o_term = reinterpret_cast<bool*>(o[18]);
+  p.o_pending = reinterpret_cast<bool*>(o[19]);
 
-  p.H = H; p.W = W; p.n_ops = n_ops;
+  p.B = B; p.H = H; p.W = W; p.n_ops = n_ops;
   p.max_trial = max_trial; p.submit_op = submit_op;
 
-  if (B > 0) {
-    step_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == 30 && W == 30) return launch<30, 30, 4>(p, s);
+  if (H == 5 && W == 5) return launch<5, 5, 1>(p, s);
+  return launch<0, 0, 1>(p, s);
 }

@@ -52,7 +52,7 @@ class ResetOptions:
 
     @staticmethod
     def make(prob_index=-1, subprob_index=-1, adaptation=True,
-             reset_on_submit=False, device="cpu") -> "ResetOptions":
+             reset_on_submit=False, device="cuda") -> "ResetOptions":
         t = lambda v, dt: torch.as_tensor(v, device=device).to(dt)
         return ResetOptions(
             prob_index=t(prob_index, I32),
@@ -151,14 +151,15 @@ class BatchedEnv:
     terminate_on_match: bool = False
     augment: bool = False           # reset-time rot90 + recolour (meta.py)
     reset_pool: int = 0
-    opts: ResetOptions = dataclasses.field(
-        default_factory=lambda: ResetOptions.make())
+    opts: Optional[ResetOptions] = None     # None: the defaults
 
     def __post_init__(self):
         # the options live beside the bank: a blocking host-to-device copy
         # waits for the stream, so options left on the host would make
         # every auto-reset step wait for the device
-        object.__setattr__(self, "opts", self.opts.to(self.device))
+        opts = ResetOptions.make(device=self.device) if self.opts is None \
+            else self.opts.to(self.device)
+        object.__setattr__(self, "opts", opts)
 
     @property
     def device(self) -> torch.device:

@@ -69,8 +69,9 @@ class TaskBank:
 
 
 def bake_bank(tasks: Sequence[TaskTuple], H: int = 30, W: int = 30,
-              device="cpu") -> TaskBank:
-    """Pack parsed tasks into a :class:`TaskBank` on ``device``."""
+              device="cuda") -> TaskBank:
+    """Pack parsed tasks into a :class:`TaskBank` on ``device`` (the card
+    unless the caller asks for another device)."""
     in_g, in_d, out_g, out_d = [], [], [], []
     tr_off, tr_cnt, te_off, te_cnt = [], [], [], []
 
@@ -133,7 +134,7 @@ class Loader(ABC):
             raise IndexError(f"task {data_index} out of {len(self.data)}")
         return self.data[data_index]
 
-    def bank(self, H: int = 30, W: int = 30, device="cpu") -> TaskBank:
+    def bank(self, H: int = 30, W: int = 30, device="cuda") -> TaskBank:
         return bake_bank(self.data, H, W, device)
 
 

@@ -2,9 +2,11 @@
 version.
 
 Counterpart of ``arcle_tpu/ops/pallas_step.py``.  The kernel
-(``csrc/step_kernel.cu``) runs one env's whole transition per thread block
-and folds in the reward / bookkeeping epilogue; it finishes flood fills
-exactly, so the ``pending`` it returns is always False.
+(``csrc/step_kernel.cu``) runs one env's whole transition per warp and
+folds in the reward / bookkeeping epilogue; it finishes flood fills
+exactly, so the ``pending`` it returns is always False.  Its 20 outputs
+are views of one device arena, each contiguous, with the dtype and shape
+of the plain version's, and each starting on a 256-byte boundary.
 
 The source is compiled with ``nvcc`` at first use into ``_build/`` (keyed
 by a hash of the source and flags) as a shared library with a plain C
@@ -26,7 +28,9 @@ the state's ``input`` tensor, which ``init_state`` leaves zero outside
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -45,7 +49,7 @@ SOURCE = _PKG / "csrc" / "step_kernel.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_CELLS = 1024          # kernel: 256 threads x 4 cells
+MAX_CELLS = 1024          # kernel: one warp's shared rows per env
 
 LAUNCHES = 0              # kernel launches since import (or the last reset)
 
@@ -96,11 +100,23 @@ def load() -> ctypes.CDLL:
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
         fn = lib.arcle_step_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
-            [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        occ = lib.arcle_step_resident_warps
+        occ.argtypes = [ctypes.c_int, ctypes.c_int]
+        occ.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def resident_warps(H: int = 30, W: int = 30) -> int:
+    """Envs (one warp each) that one SM holds at once for ``H x W`` grids,
+    as the CUDA occupancy calculator gives it for the kernel's build."""
+    n = load().arcle_step_resident_warps(H, W)
+    if n < 0:
+        raise RuntimeError("step kernel: occupancy query failed")
+    return n
 
 
 def plain_step_deferred(state: EnvState, action: Action, table: OpTable):
@@ -131,6 +147,9 @@ _FLAG_OUT = ("trials_remain", "terminated", "active", "rotation_parity")
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
            device: torch.device) -> None:
+    if t.device == device and t.dtype == dtype and t.shape == shape and \
+            t.is_contiguous():
+        return
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -164,15 +183,16 @@ def cuda_step_deferred(state: EnvState, action: Action, table: OpTable):
     if G.OBJECT in table.group and H != W:
         raise ValueError("step kernel: object ops need square grids")
 
+    grid_shape = (B, H, W)
     for name in _GRID_IN:
-        _check(name, getattr(state, name), I8, (B, H, W), dev)
+        _check(name, getattr(state, name), I8, grid_shape, dev)
     for name in _DIM_IN:
         _check(name, getattr(state, name), I8, (B, 2), dev)
     for name in _FLAG_IN:
         _check(name, getattr(state, name), I8, (B,), dev)
     for name in _COUNT_IN:
         _check(name, getattr(state, name), I32, (B,), dev)
-    _check("selection", action.selection, I8, (B, H, W), dev)
+    _check("selection", action.selection, I8, grid_shape, dev)
     _check("operation", action.operation, I32, (B,), dev)
 
     lib = load()
@@ -184,35 +204,65 @@ def cuda_step_deferred(state: EnvState, action: Action, table: OpTable):
     return result
 
 
+# The outputs in the kernel's order, by kind: names, dtype, and the shape
+# after the batch axis (None: the grid's).  The reward is also the state's
+# `last_reward`; `_term` and `_pending` are returned beside the state.
+_OUT_KINDS = ((_GRID_OUT, I8, None), (_DIM_OUT, I8, (2,)),
+              (_FLAG_OUT, I8, ()),
+              (("steps", "submit_count", "last_action_op"), I32, ()),
+              (("last_reward",), F32, ()),
+              (("_term", "_pending"), torch.bool, ()))
+
+
+def _pad(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(B: int, H: int, W: int):
+    """Where the 20 outputs lie in one byte arena, each on a 256-byte
+    boundary.  Returns ``(arena bytes, the kernel's int64 offsets, [(names,
+    dtype, shape, strides, start, stride)])``: the outputs of one kind are
+    ``stride`` bytes apart from ``start`` on."""
+    kinds, offsets, at = [], [], 0
+    for names, dtype, tail in _OUT_KINDS:
+        shape = (B,) + ((H, W) if tail is None else tail)
+        strides = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        stride = _pad(math.prod(shape) * dtype.itemsize)
+        kinds.append((names, dtype, shape, strides, at, stride))
+        offsets += [at + k * stride for k in range(len(names))]
+        at += stride * len(names)
+    return at, (ctypes.c_int64 * len(offsets))(*offsets), kinds
+
+
 def _launch(lib: ctypes.CDLL, state: EnvState, action: Action,
             table: OpTable, rows: torch.Tensor, stream):
-    """Allocate the outputs beside ``state`` and launch the kernel of
-    ``lib`` on ``stream``; the inputs are already checked."""
+    """Allocate the outputs as views of one arena beside ``state`` and
+    launch the kernel of ``lib`` on ``stream``; the inputs are already
+    checked."""
     B, H, W = state.grid.shape
-    dev = state.grid.device
-    out = {name: torch.empty((B, H, W), dtype=I8, device=dev)
-           for name in _GRID_OUT}
-    out.update({name: torch.empty((B, 2), dtype=I8, device=dev)
-                for name in _DIM_OUT})
-    out.update({name: torch.empty((B,), dtype=I8, device=dev)
-                for name in _FLAG_OUT})
-    out.update({name: torch.empty((B,), dtype=I32, device=dev)
-                for name in ("steps", "submit_count", "last_action_op")})
-    reward = torch.empty((B,), dtype=F32, device=dev)
-    term = torch.empty((B,), dtype=torch.bool, device=dev)
-    pending = torch.empty((B,), dtype=torch.bool, device=dev)
-
+    total, offsets, kinds = _layout(B, H, W)
     ins = [getattr(state, n) for n in _GRID_IN] + [action.selection] + \
         [getattr(state, n) for n in _DIM_IN + _FLAG_IN + _COUNT_IN] + \
         [action.operation, rows]
-    outs = [out[n] for n in _GRID_OUT + _DIM_OUT + _FLAG_OUT] + \
-        [out["steps"], out["submit_count"], out["last_action_op"], reward,
-         term, pending]
-    in_ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
-    out_ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
-    err = lib.arcle_step_launch(in_ptrs, out_ptrs, B, H, W, table.n_ops,
-                                table.max_trial, table.submit_op, stream)
+    ptrs = [t.data_ptr() for t in ins]
+    if (H, W) == (30, 30) and any(p & 3 for p in ptrs[:9]):
+        raise ValueError("step kernel: a grid does not start on a 4-byte "
+                         "boundary")
+    in_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+    arena = torch.empty(total, dtype=torch.uint8, device=state.grid.device)
+    out = {}
+    for names, dtype, shape, strides, start, stride in kinds:
+        size = dtype.itemsize
+        views = arena.view(dtype).as_strided(
+            (len(names),) + shape, (stride // size,) + strides,
+            start // size).unbind(0)
+        out.update(zip(names, views))
+    err = lib.arcle_step_launch(in_ptrs, arena.data_ptr(), offsets, B, H, W,
+                                table.n_ops, table.max_trial, table.submit_op,
+                                stream)
     if err != 0:
         raise RuntimeError(f"step kernel launch failed: CUDA error {err}")
-    s2 = state.replace(last_reward=reward, **out)
-    return s2, reward, term, pending
+    term, pending = out.pop("_term"), out.pop("_pending")
+    return state.replace(**out), out["last_reward"], term, pending

@@ -1,17 +1,24 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA engine on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --profile   # build, then the device work per step
 
 Phases, each printing its numbers on a line of its own:
 
 1. device  -- needs CUDA; prints the card's name and power limit;
-2. build   -- compiles csrc/step_kernel.cu with nvcc and loads it;
+2. build   -- compiles csrc/step_kernel.cu with nvcc and loads it; prints
+              ptxas's registers, shared memory and spills per
+              instantiation, and the env-warps resident per SM;
 3. parity  -- the step kernel against its plain PyTorch version (plus the
-              flood fix-up) on the same CUDA inputs: B=4096, 30 fuzz steps
-              on o2arc_table (with and without crop_at_33), arc_table and
-              raw_table; every state field, the reward and `terminated`
-              bit-exact;
+              flood fix-up) on the same CUDA inputs at B=4096: fuzz steps on
+              o2arc_table (with and without crop_at_33), arc_table and
+              raw_table at 30x30, o2arc at 5x5, and raw / arc at 12x20, 5x7
+              and 16x64 (the instantiation with runtime H, W), each after
+              the adversarial cases of ``ops.adversarial`` (corridor floods
+              seeded at their far end, int8 selections other than 0/1,
+              object ops on envs holding an object, reset-on-submit rows);
+              every state field, the reward and `terminated` bit-exact;
 4. engine  -- BatchedEnv on CUDA against the same engine on the CPU, same
               start, pool and actions, 256 envs x 40 steps across
               auto-resets: carry, obs, reward, term, trunc bit-exact;
@@ -30,12 +37,20 @@ Phases, each printing its numbers on a line of its own:
               losses, moving params, auto-resets and the TimeLimit
               bootstrap asserted; ms/iter, env-steps/s including the
               learner, the rollout / update split and the peak memory;
-6. timing  -- CUDA-event times of the kernel and of its plain version per
-              step at B=4096, and of the 100-step loop through each.
+6. timing  -- at B=4096 on O2ARCv2 with random bbox actions, for 30x30 and
+              5x5: the kernel's device time per launch (a CUDA graph of 20
+              dependent launches replayed between CUDA events), its bound
+              (the bytes these inputs need over 3.35 TB/s) and share, the
+              wrapper's host time per call (host clock, 200 calls), the
+              host-inclusive time of a loop of wrapper calls, and the plain
+              step; then the 100-step loop through the kernel and through
+              the plain step.
 
 It then prints a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no result.  Without CUDA it exits with code 2.
+``--profile`` prints the engine loop's and the PPO rollout's device work
+per step (``torch.profiler`` device events) and exits.
 """
 
 from __future__ import annotations
@@ -76,9 +91,10 @@ def fuzz_actions(gen, batch, n_ops, H, W, dev):
     ops = torch.randint(-1, n_ops + 1, (batch,), generator=gen, device=dev,
                         dtype=I32)
     style = torch.randint(0, 4, (batch,), generator=gen, device=dev)
-    c = torch.randint(0, H, (4, batch), generator=gen, device=dev, dtype=I32)
-    box = bbox_selection(c[0], c[1], c[2], c[3], H, W)
-    pix = point_selection(c[0], c[1], H, W)
+    r = torch.randint(0, H, (2, batch), generator=gen, device=dev, dtype=I32)
+    c = torch.randint(0, W, (2, batch), generator=gen, device=dev, dtype=I32)
+    box = bbox_selection(r[0], c[0], r[1], c[1], H, W)
+    pix = point_selection(r[0], c[0], H, W)
     sparse = (torch.rand((batch, H, W), generator=gen, device=dev)
               < 0.08).to(torch.int8)
     s = style.view(-1, 1, 1)
@@ -91,51 +107,95 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def phase_parity(dev) -> float:
+def check_step(st, act, table, what: str) -> tuple:
+    """The kernel against its plain version (plus the flood fix-up) on one
+    step: every state field, the reward and `terminated` bit-exact,
+    `pending` all False.  Returns the plain next state and the largest
+    absolute difference (0.0)."""
     from arcle_tpu_torch.core import FIELDS
-    from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
-    from arcle_tpu_torch.loaders import SyntheticLoader
-    from arcle_tpu_torch.ops import (
-        o2arc_table, arc_table, raw_table, finish_flood)
+    from arcle_tpu_torch.ops import finish_flood
     from arcle_tpu_torch.ops.step_kernel import (
         cuda_step_deferred, plain_step_deferred)
+    ks, kr, kt, kp = cuda_step_deferred(st, act, table)
+    ps, pr, pt, pp = plain_step_deferred(st, act, table)
+    if bool(pp.any()):
+        ps = finish_flood(ps, act, table, pp)
+    pairs = [(f, getattr(ks, f), getattr(ps, f)) for f in FIELDS]
+    pairs += [("reward", kr, pr), ("terminated", kt, pt),
+              ("pending", kp, torch.zeros_like(kp))]
+    worst = 0.0
+    for field, k, p in pairs:
+        if not torch.equal(k, p):
+            bad = (k != p).reshape(k.shape[0], -1).any(dim=1).nonzero()
+            raise AssertionError(
+                f"parity: {what} field {field} differs in {bad.numel()} "
+                f"envs, first {bad[:5, 0].tolist()}")
+        worst = max(worst, max_abs_diff(k, p))
+    return ps, worst
 
-    bank = SyntheticLoader(16, seed=3).bank(device=dev)
+
+def check_adversarial(st, table, seed: int, what: str) -> float:
+    """``ops.adversarial.step_cases`` on the states ``st``: corridor floods
+    seeded at their far end, int8 selections other than 0/1, object ops on
+    envs holding an object, reset-on-submit rows."""
+    import numpy as np
+    from arcle_tpu_torch.core import Action, state_from_numpy, state_to_numpy
+    from arcle_tpu_torch.testing import step_cases
+    dev = st.grid.device
+    worst, names = 0.0, []
+    for name, s0, acts in step_cases(state_to_numpy(st), table,
+                                     np.random.default_rng(seed)):
+        s = state_from_numpy(s0, device=dev)
+        for t, (sel, ops) in enumerate(acts):
+            act = Action(selection=torch.from_numpy(sel).to(dev),
+                         operation=torch.from_numpy(ops).to(dev))
+            s, w = check_step(s, act, table, f"{what} {name} step {t}")
+            worst = max(worst, w)
+        names.append(name)
+    torch.cuda.synchronize()
+    log(f"parity {what} adversarial: B={st.batch} {', '.join(names)} "
+        "bit-exact")
+    return worst
+
+
+def phase_parity(dev) -> float:
+    from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    from arcle_tpu_torch.ops import o2arc_table, arc_table, raw_table
+
     gen = torch.Generator(device=dev)
     # a quarter of the envs re-init on Submit
     ros = torch.arange(B, device=dev) % 4 == 0
     worst = 0.0
-    tables = [("o2arc", o2arc_table(max_trial=3)),
-              ("o2arc_crop33", o2arc_table(max_trial=3, crop_at_33=True)),
-              ("arc", arc_table(max_trial=3)), ("raw", raw_table(max_trial=3))]
-    for ti, (name, table) in enumerate(tables):
-        env = BatchedEnv(table=table, bank=bank, max_trial=3,
+    # (name, table, H, W): the four tables at 30x30, the answer-given 5x5
+    # geometry, and shapes that take the kernel's instantiation with
+    # runtime H, W (non-square, odd, wider than 32 columns)
+    cases = [("o2arc", o2arc_table(max_trial=3), 30, 30),
+             ("o2arc_crop33", o2arc_table(max_trial=3, crop_at_33=True),
+              30, 30),
+             ("arc", arc_table(max_trial=3), 30, 30),
+             ("raw", raw_table(max_trial=3), 30, 30),
+             ("o2arc_5x5", o2arc_table(max_trial=3), 5, 5),
+             ("raw_12x20", raw_table(max_trial=3), 12, 20),
+             ("arc_5x7", arc_table(max_trial=3), 5, 7),
+             ("arc_16x64", arc_table(max_trial=3), 16, 64)]
+    for ti, (name, table, H, W) in enumerate(cases):
+        loader = SyntheticLoader(16, seed=3, min_size=2,
+                                 max_size=min(H, W, 12))
+        env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
+                         max_trial=3,
                          opts=ResetOptions.make(reset_on_submit=ros,
                                                 device=dev))
         gen.manual_seed(100 + ti)
         st = env.reset(gen, B).env
-        n_pending = 0
-        for t in range(PARITY_STEPS):
-            act = fuzz_actions(gen, B, table.n_ops, 30, 30, dev)
-            ks, kr, kt, kp = cuda_step_deferred(st, act, table)
-            ps, pr, pt, pp = plain_step_deferred(st, act, table)
-            if bool(pp.any()):
-                n_pending += int(pp.sum())
-                ps = finish_flood(ps, act, table, pp)
-            pairs = [(f, getattr(ks, f), getattr(ps, f)) for f in FIELDS]
-            pairs += [("reward", kr, pr), ("terminated", kt, pt),
-                      ("pending", kp, torch.zeros_like(kp))]
-            for field, k, p in pairs:
-                if not torch.equal(k, p):
-                    bad = (k != p).reshape(B, -1).any(dim=1).nonzero()
-                    raise AssertionError(
-                        f"parity: table {name} step {t} field {field} "
-                        f"differs in {bad.numel()} envs, first {bad[:5, 0]}")
-                worst = max(worst, max_abs_diff(k, p))
-            st = ps
+        worst = max(worst, check_adversarial(st, table, ti, name))
+        steps = PARITY_STEPS if (H, W) == (30, 30) else PARITY_STEPS // 3
+        for t in range(steps):
+            act = fuzz_actions(gen, B, table.n_ops, H, W, dev)
+            st, w = check_step(st, act, table, f"table {name} step {t}")
+            worst = max(worst, w)
         torch.cuda.synchronize()
-        log(f"parity {name}: B={B} steps={PARITY_STEPS} bit-exact "
-            f"(deferred floods finished by the plain fix-up: {n_pending})")
+        log(f"parity {name}: B={B} {H}x{W} steps={steps} bit-exact")
     return worst
 
 
@@ -148,7 +208,7 @@ def phase_engine(dev):
     from arcle_tpu_torch.envs.core import BatchedState
 
     n, steps = 256, 40
-    bank = SyntheticLoader(16, seed=3).bank()
+    bank = SyntheticLoader(16, seed=3).bank(device="cpu")
     mk = lambda b: BatchedEnv(table=o2arc_table(max_trial=-1), bank=b,
                               max_trial=-1, episode_limit=12,
                               auto_reset=True, reset_pool=3)
@@ -393,39 +453,187 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(dev, card: str):
-    from arcle_tpu_torch.envs import random_bbox_actions, random_bbox_rollout
-    from arcle_tpu_torch.ops import finish_flood
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+SCALAR_BYTES = 29 + 30        # per env: dims, flags, counters in and out
+
+
+def step_bytes(st, act, table) -> int:
+    """The bytes one step of these inputs must move: each grid the op
+    reads (the copied-through fields included) once, the 6 output grids
+    once, and the per-env scalars.  Grids an op overwrites whole, or that
+    it does not consult for this env's selection and flags, are not
+    counted: the grid under ResizeGrid with a selection and under a
+    re-initialising Submit, the input except where Copy, CopyFromInput or
+    a re-initialising Submit takes it."""
+    from arcle_tpu_torch.ops.groups import G, precompute_selection
+    from arcle_tpu_torch.ops.table import lookup
+    n, H, W = st.grid.shape
+    _, grp, par, rs = lookup(act, table)
+    pre = precompute_selection(act.selection)
+    isin = lambda *gs: torch.isin(grp, torch.tensor(gs, device=grp.device))
+    active0 = (st.active != 0) & ~rs
+    obj_ok = (grp == G.OBJECT) & (pre.any | active0)
+    stored = obj_ok & ~pre.any              # a stored object moves on
+    from_input = par == 0
+    dim = torch.where(from_input.view(-1, 1), st.input_dim,
+                      st.grid_dim).to(torch.int32)
+    copy_ok = (grp == G.COPY) & pre.any & \
+        ~((pre.rmax > dim[:, 0]) | (pre.cmax > dim[:, 1]))
+    sub_ros = (grp == G.SUBMIT) & (st.trials_remain != 0) & \
+        (st.reset_on_submit != 0)
+    keep = ~obj_ok & ~sub_ros
+    i64 = lambda m: m.to(torch.int64)
+    grids = (i64(~isin(G.COPY_FROM_INPUT, G.RESET_GRID) & ~sub_ros
+                 & ~((grp == G.RESIZE_GRID) & pre.any))           # grid
+             + i64(isin(G.COLOR, G.FLOOD, G.OBJECT, G.COPY, G.PASTE,
+                        G.RESIZE_GRID, G.CROP_GRID))              # selection
+             + i64(keep & ~rs)                                    # selected
+             + 3 * i64(keep | stored)       # object, object_sel, background
+             + i64(~copy_ok & ~sub_ros)                           # clip
+             + i64((copy_ok & from_input) | (grp == G.COPY_FROM_INPUT)
+                   | sub_ros)                                     # input
+             + i64(grp == G.SUBMIT))                              # answer
+    return int(grids.sum()) * H * W + n * (6 * H * W + SCALAR_BYTES)
+
+
+def graph_device_ms(step, st, acts, table, chain: int = 20,
+                    reps: int = 20) -> float:
+    """The kernel's device time per launch: ``chain`` dependent launches
+    (each reads the state the previous one wrote, as the main path does)
+    captured in one CUDA graph and replayed ``reps`` times between CUDA
+    events, so no host time is counted."""
+    s = st
+    for a in acts[:3]:                     # warm-up: build, load, table rows
+        s = step(s, a, table)[0]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s = st
+        for k in range(chain):
+            s = step(s, acts[k % len(acts)], table)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _event_ms(graph.replay, reps) / chain
+    del graph
+    return ms
+
+
+def host_us(step, st, acts, table, calls: int = 200) -> float:
+    """The wrapper's host time per call: host clock over ``calls`` calls,
+    no synchronise inside."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        step(st, acts[i % len(acts)], table)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def chain_bytes(step, st, acts, table, chain: int = 20) -> float:
+    """Mean bytes per launch over the chain that ``graph_device_ms`` times."""
+    total, s = 0, st
+    for k in range(chain):
+        a = acts[k % len(acts)]
+        total += step_bytes(s, a, table)
+        s = step(s, a, table)[0]
+    return total / chain
+
+
+def time_groups(st, acts, table, card: str) -> None:
+    """Device time and bound per op group: every env of the batch takes one
+    op of the group (the same selections as the mix)."""
+    from arcle_tpu_torch.core import Action
+    from arcle_tpu_torch.ops.step_kernel import cuda_step_deferred
+    names = ("Color3", "Flood3", "Move_U", "Rotate_90", "Flip_H", "Copy_I",
+             "Paste", "CopyFromInput", "ResetGrid", "ResizeGrid", "Submit")
+    parts = []
+    for name, op in zip(names, (3, 13, 20, 24, 26, 28, 30, 31, 32, 33, 34)):
+        one = [Action(selection=a.selection,
+                      operation=torch.full_like(a.operation, op))
+               for a in acts]
+        nbytes = chain_bytes(cuda_step_deferred, st, one, table)
+        ms = graph_device_ms(cuda_step_deferred, st, one, table)
+        parts.append(f"{name} {ms * 1e3:.2f} (bound "
+                     f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f})")
+    log(f"timing kernel by op, B={B} 30x30, device us per launch: "
+        f"{', '.join(parts)} ({card})")
+
+
+def time_kernel(dev, card: str, H: int, W: int) -> dict:
+    """Device time, host time, bound and plain time of the kernel at B on
+    O2ARCv2 with random bbox actions, on an ``H x W`` bank."""
+    from arcle_tpu_torch.envs import BatchedEnv, random_bbox_actions
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    from arcle_tpu_torch.ops import finish_flood, o2arc_table
     from arcle_tpu_torch.ops.step_kernel import (
         cuda_step_deferred, plain_step_deferred)
+
+    table = o2arc_table(max_trial=-1)
+    loader = SyntheticLoader(16, seed=3, min_size=2, max_size=min(H, W, 12))
+    env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
+                     max_trial=-1, episode_limit=100, auto_reset=True,
+                     reset_pool=8)
+    st = env.reset(torch.Generator(device=dev).manual_seed(2), B).env
+    gen = torch.Generator(device=dev).manual_seed(3)
+    acts = [random_bbox_actions(gen, B, table.n_ops, H, W, dev)
+            for _ in range(8)]
+
+    def plain(s, a, t):
+        s2, r, term, pend = plain_step_deferred(s, a, t)
+        if bool(pend.any()):
+            s2 = finish_flood(s2, a, t, pend)
+        return s2, r, term, pend
+
+    i = [0]
+
+    def kernel_call():
+        cuda_step_deferred(st, acts[i[0] % 8], table)
+        i[0] += 1
+
+    def plain_call():
+        plain(st, acts[i[0] % 8], table)
+        i[0] += 1
+
+    nbytes = chain_bytes(cuda_step_deferred, st, acts, table)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dev_ms = [graph_device_ms(cuda_step_deferred, st, acts, table)
+              for _ in range(2)]
+    h_us = [host_us(cuda_step_deferred, st, acts, table) for _ in range(2)]
+    for f in (kernel_call, plain_call):
+        _event_ms(f, 5)                                      # warm-up
+    loop_ms = [_event_ms(kernel_call, 50) for _ in range(2)]
+    plain_ms = [_event_ms(plain_call, 10) for _ in range(2)]
+    if (H, W) == (30, 30):
+        time_groups(st, acts, table, card)
+    out = dict(device_ms=min(dev_ms), host_us=min(h_us),
+               ms=min(loop_ms), plain_ms=min(plain_ms), bound_ms=bound_ms,
+               bytes_per_launch=nbytes,
+               roofline_share=bound_ms / min(dev_ms))
+    log(f"timing kernel B={B} {H}x{W} O2ARCv2 random bbox: device "
+        f"{dev_ms[0] * 1e3:.2f} / {dev_ms[1] * 1e3:.2f} us per launch "
+        f"(CUDA graph of 20 dependent launches, CUDA events); bound "
+        f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.3f} MB per launch at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {out['roofline_share']:.1%} "
+        f"of it; wrapper host {h_us[0]:.1f} / {h_us[1]:.1f} us per call "
+        f"(host clock, 200 calls); host-inclusive loop {loop_ms[0]:.4f} / "
+        f"{loop_ms[1]:.4f} ms per call; plain {plain_ms[0]:.4f} / "
+        f"{plain_ms[1]:.4f} ms per step ({card})")
+    return out
+
+
+def phase_timing(dev, card: str) -> dict:
+    from arcle_tpu_torch.envs import random_bbox_rollout
+    from arcle_tpu_torch.ops import finish_flood
+    from arcle_tpu_torch.ops.step_kernel import plain_step_deferred
+
+    by_geometry = {f"{h}x{w}": time_kernel(dev, card, h, w)
+                   for h, w in ((30, 30), (5, 5))}
 
     env = main_env(dev)
     table = env.table
     bs = env.reset(torch.Generator(device=dev).manual_seed(2), B)
     gen = torch.Generator(device=dev).manual_seed(3)
-    acts = [random_bbox_actions(gen, B, table.n_ops, 30, 30, dev)
-            for _ in range(8)]
-    i = [0]
-
-    def kernel_step():
-        cuda_step_deferred(bs.env, acts[i[0] % 8], table)
-        i[0] += 1
-
-    def plain_step():
-        a = acts[i[0] % 8]
-        s, _, _, pend = plain_step_deferred(bs.env, a, table)
-        if bool(pend.any()):
-            finish_flood(s, a, table, pend)
-        i[0] += 1
-
-    for f in (kernel_step, plain_step):
-        _event_ms(f, 5)                                      # warm-up
-    k_ms = _event_ms(kernel_step, 50)
-    p_ms = _event_ms(plain_step, 20)
-    k_ms2 = _event_ms(kernel_step, 50)
-    p_ms2 = _event_ms(plain_step, 20)
-    log(f"timing step B={B}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, plain "
-        f"{p_ms:.4f} / {p_ms2:.4f} ms per step (CUDA events; {card})")
 
     # the same 100-step loop through the kernel and through the plain step
     def plain_env_step(bs_, act):
@@ -452,7 +660,54 @@ def phase_timing(dev, card: str):
     for name, ms in loops.items():
         log(f"timing loop {name}: {ms:.4f} ms/step, "
             f"{B / ms * 1e3:.0f} env-steps/s (CUDA events; {card})")
-    return min(k_ms, k_ms2), min(p_ms, p_ms2)
+    return by_geometry
+
+
+def device_work(fn, steps: int) -> tuple:
+    """Device microseconds and device operations per step of ``fn`` (which
+    runs ``steps`` steps), and the step kernel's share, from
+    ``torch.profiler``'s device events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time for e in events)
+    kernel = sum(e.device_time for e in events if "step_kernel" in e.name)
+    return total / steps, len(events) / steps, kernel / steps
+
+
+def phase_profile(dev, card: str):
+    """Device work per step of the engine loop and of the PPO rollout."""
+    from arcle_tpu_torch.envs import random_bbox_rollout
+    from arcle_tpu_torch.training import rollout
+    from arcle_tpu_torch.training.train import setup_ppo
+
+    steps = 20
+    env = main_env(dev)
+    bs = [env.reset(torch.Generator(device=dev).manual_seed(0), B)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def engine():
+        bs[0], _ = random_bbox_rollout(env, bs[0], steps, gen)
+    engine()                                                # warm-up
+    us, ops, k_us = device_work(engine, steps)
+    log(f"profile engine loop: {us:.1f} us of device work in {ops:.1f} "
+        f"device operations per step, step_kernel {k_us:.1f} us "
+        f"(torch.profiler device events; {card})")
+
+    run = setup_ppo(train_config("cuda", B, 1))
+
+    def roll():
+        rollout(run.env, run.bs, run.params, run.generator, steps, run.agent)
+    roll()                                                  # warm-up
+    us, ops, k_us = device_work(roll, steps)
+    log(f"profile PPO rollout: {us:.1f} us of device work in {ops:.1f} "
+        f"device operations per step, step_kernel {k_us:.1f} us "
+        f"(torch.profiler device events; {card})")
 
 
 def main() -> int:
@@ -470,15 +725,23 @@ def main() -> int:
     step_kernel.load()
     log(f"build: {build_s:.2f} s -> {path.name}")
     for line in build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if "registers" in line or "smem" in line or "spill" in line or \
+                "Compiling entry" in line:
             log(f"build: {line.strip()}")
+    log(f"build: {step_kernel.resident_warps(30, 30)} env-warps resident per "
+        f"SM at 30x30, {step_kernel.resident_warps(5, 5)} at 5x5")
+
+    if "--profile" in sys.argv[1:]:
+        phase_profile(dev, card)
+        return 0
 
     worst = phase_parity(dev)
     phase_engine(dev)
     launches = {"main": phase_main(dev)}
     phase_learner(dev)
     launches["train"] = phase_train(dev, card)
-    k_ms, p_ms = phase_timing(dev, card)
+    timing = phase_timing(dev, card)
+    t30 = timing["30x30"]
 
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
@@ -486,7 +749,11 @@ def main() -> int:
         "replaces": "arcle_tpu/ops/pallas_step.py:248",
         "launches": sum(launches.values()), "launches_by_path": launches,
         "max_abs_err": worst,
-        "ms": k_ms, "plain_ms": p_ms}]}
+        "ms": t30["ms"], "plain_ms": t30["plain_ms"],
+        "device_ms": t30["device_ms"], "host_us": t30["host_us"],
+        "bound_ms": t30["bound_ms"], "bound_by": "bytes",
+        "bytes_per_launch": t30["bytes_per_launch"],
+        "library_ms": None, "by_geometry": timing}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

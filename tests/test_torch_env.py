@@ -72,8 +72,8 @@ def make_envs(pool, shaping, opts_rows):
                                              for k, v in opts_rows.items()}),
                        **kw)
     tenv = BatchedEnv(table=o2arc_table(max_trial=3),
-                      bank=SyntheticLoader(8, seed=0).bank(),
-                      opts=ResetOptions.make(**opts_rows), **kw)
+                      bank=SyntheticLoader(8, seed=0).bank(device="cpu"),
+                      opts=ResetOptions.make(**opts_rows, device="cpu"), **kw)
     return jenv, tenv
 
 
@@ -156,3 +156,17 @@ def test_batched_env_matches(case):
                                           err_msg=f"{what} pool counter")
         resets += int((tterm | ttrunc).sum())
     assert resets >= B            # every env truncated at least once
+
+
+def test_entry_points_default_to_the_card():
+    """Banks and reset options are made on the card unless the caller asks
+    for another device; the env's default options follow its bank."""
+    import inspect
+    from arcle_tpu_torch.loaders import Loader, bake_bank
+    for fn in (bake_bank, Loader.bank, ResetOptions.make):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+    env = BatchedEnv(table=o2arc_table(),
+                     bank=SyntheticLoader(2, seed=0).bank(device="meta"))
+    for f in dataclasses.fields(env.opts):
+        assert getattr(env.opts, f.name).device.type == "meta", f.name

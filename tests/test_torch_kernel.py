@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from arcle_tpu_torch.core import Action, FIELDS
+from arcle_tpu_torch.core import Action, FIELDS, state_from_numpy, \
+    state_to_numpy
 from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
 from arcle_tpu_torch.loaders import SyntheticLoader
 from arcle_tpu_torch.ops import (
     o2arc_table, arc_table, raw_table, finish_flood, step_kernel,
 )
+from arcle_tpu_torch.testing import step_cases
 from arcle_tpu_torch.ops.step_kernel import (
     cuda_step_deferred, plain_step_deferred,
 )
@@ -47,7 +49,7 @@ def test_port_imports_no_jax():
 
 
 def small_state(table, batch=16, seed=0):
-    env = BatchedEnv(table=table, bank=SyntheticLoader(8, seed=0).bank(),
+    env = BatchedEnv(table=table, bank=SyntheticLoader(8, seed=0).bank(device="cpu"),
                      max_trial=3)
     return env.reset(torch.Generator().manual_seed(seed), batch).env
 
@@ -103,6 +105,64 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         step_kernel.build()
 
 
+class _RecordingLib:
+    """Stands in for the kernel library: records the launch's arguments."""
+
+    def __init__(self):
+        self.args = None
+
+    def arcle_step_launch(self, *args):
+        self.args = args
+        return 0
+
+
+def test_outputs_are_aligned_views_of_one_arena():
+    """The wrapper's 20 outputs: one arena, each view contiguous with the
+    plain version's dtype and shape, on a 256-byte boundary, disjoint, at
+    the byte offsets the kernel is given."""
+    table = o2arc_table(max_trial=3)
+    for batch in (16, 13):                  # 13: a ragged last block
+        st = small_state(table, batch=batch)
+        act = fuzz_action(np.random.default_rng(0), batch, table.n_ops)
+        lib = _RecordingLib()
+        ks, kr, kt, kp = step_kernel._launch(lib, st, act, table,
+                                             table.rows("cpu"), None)
+        ps, pr, pt, pp = plain_step_deferred(st, act, table)
+        base, offsets = lib.args[1], list(lib.args[2])
+        outs = [getattr(ks, n) for n in step_kernel._GRID_OUT +
+                step_kernel._DIM_OUT + step_kernel._FLAG_OUT] + \
+            [ks.steps, ks.submit_count, ks.last_action_op, kr, kt, kp]
+        plain = [getattr(ps, n) for n in step_kernel._GRID_OUT +
+                 step_kernel._DIM_OUT + step_kernel._FLAG_OUT] + \
+            [ps.steps, ps.submit_count, ps.last_action_op, pr, pt, pp]
+        assert len(outs) == len(offsets) == 20
+        assert ks.last_reward is kr
+        spans = []
+        for out, ref, off in zip(outs, plain, offsets):
+            assert out.dtype == ref.dtype and out.shape == ref.shape
+            assert out.is_contiguous()
+            assert out.data_ptr() == base + off and off % 256 == 0
+            spans.append((off, off + out.numel() * out.element_size()))
+        spans.sort()
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        for name in ("input", "answer", "input_dim", "answer_dim",
+                     "reset_on_submit"):
+            assert getattr(ks, name) is getattr(st, name)
+
+
+def test_misaligned_grid_raises():
+    """Word-wide access needs each grid row on a 4-byte boundary: a grid
+    that starts elsewhere is refused, not stepped."""
+    table = raw_table()
+    st = small_state(table, batch=2)
+    shifted = torch.zeros(2 * 900 + 1, dtype=torch.int8)[1:].view(2, 30, 30)
+    act = Action(selection=torch.zeros((2, 30, 30), dtype=torch.int8),
+                 operation=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="4-byte"):
+        step_kernel._launch(_RecordingLib(), st.replace(grid=shifted), act,
+                            table, table.rows("cpu"), None)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -154,3 +214,52 @@ def test_kernel_matches_plain_on_card(cuda_device, family):
         assert not bool(kp.any())
         st = ps
     assert step_kernel.LAUNCHES == launches + 15
+
+
+# (table, H, W): the 30x30 tables, the 5x5 geometry, and shapes for the
+# instantiation with runtime H, W: non-square (12x20), an odd cell count
+# (5x7), and wider than 32 columns, where the flood relaxes in shared
+# memory (16x64)
+ADVERSARIAL = {"o2arc": (lambda: o2arc_table(max_trial=3), 30, 30),
+               "o2arc_crop33": (lambda: o2arc_table(max_trial=3,
+                                                    crop_at_33=True), 30, 30),
+               "arc": (lambda: arc_table(max_trial=3), 30, 30),
+               "raw": (lambda: raw_table(max_trial=3), 30, 30),
+               "o2arc_5x5": (lambda: o2arc_table(max_trial=3), 5, 5),
+               "raw_12x20": (lambda: raw_table(max_trial=3), 12, 20),
+               "arc_5x7": (lambda: arc_table(max_trial=3), 5, 7),
+               "arc_16x64": (lambda: arc_table(max_trial=3), 16, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL))
+def test_kernel_matches_plain_adversarial_on_card(cuda_device, case):
+    """The adversarial cases (corridor floods seeded at their far end, int8
+    selections other than 0/1, object ops on envs holding an object,
+    reset-on-submit rows) through the kernel and its plain version."""
+    make_table, H, W = ADVERSARIAL[case]
+    table = make_table()
+    batch = 509                             # a ragged last block
+    loader = SyntheticLoader(8, seed=0, min_size=2, max_size=min(H, W, 12))
+    env = BatchedEnv(table=table, bank=loader.bank(H, W, device=cuda_device),
+                     max_trial=3)
+    st = env.reset(torch.Generator(device=cuda_device).manual_seed(0),
+                   batch).env
+    rng = np.random.default_rng(2)
+    for name, s0, acts in step_cases(state_to_numpy(st), table, rng):
+        s = state_from_numpy(s0, device=cuda_device)
+        for t, (sel, ops) in enumerate(acts):
+            act = Action(selection=torch.from_numpy(sel).to(cuda_device),
+                         operation=torch.from_numpy(ops).to(cuda_device))
+            ks, kr, kt, kp = cuda_step_deferred(s, act, table)
+            ps, pr, pt, pp = plain_step_deferred(s, act, table)
+            if bool(pp.any()):
+                ps = finish_flood(ps, act, table, pp)
+            torch.cuda.synchronize()
+            for field in FIELDS:
+                assert torch.equal(getattr(ks, field), getattr(ps, field)), \
+                    f"{case} {name} step {t} field {field}"
+            assert torch.equal(kr, pr) and torch.equal(kt, pt), \
+                f"{case} {name} step {t}"
+            assert not bool(kp.any())
+            s = ps

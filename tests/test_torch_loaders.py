@@ -26,7 +26,7 @@ def assert_banks_equal(jbank, tbank):
 @pytest.mark.parametrize("n_tasks,seed", [(16, 3), (8, 0)])
 def test_synthetic_bank_bit_identical(n_tasks, seed):
     assert_banks_equal(jl.SyntheticLoader(n_tasks, seed=seed).bank(),
-                       tl.SyntheticLoader(n_tasks, seed=seed).bank())
+                       tl.SyntheticLoader(n_tasks, seed=seed).bank(device="cpu"))
 
 
 def test_list_loader_bank_and_geometry():
@@ -38,18 +38,18 @@ def test_list_loader_bank_and_geometry():
             for x, y in zip(xs, ys):
                 np.testing.assert_array_equal(x, y)
     assert_banks_equal(jl.ListLoader(tasks_j).bank(),
-                       tl.ListLoader(tasks_t).bank())
+                       tl.ListLoader(tasks_t).bank(device="cpu"))
     # the 5x5 geometry of the answer-given suite
     small_j = jsyn.make_tasks(4, seed=1, min_size=5, max_size=5)
     small_t = tsyn.make_tasks(4, seed=1, min_size=5, max_size=5)
     assert_banks_equal(jl.ListLoader(small_j).bank(5, 5),
-                       tl.ListLoader(small_t).bank(5, 5))
+                       tl.ListLoader(small_t).bank(5, 5, device="cpu"))
 
 
 def test_pair_index_and_count():
     tasks = tsyn.make_tasks(7, seed=4, n_train=2, n_test=2)
     jbank = jl.ListLoader(tasks).bank()
-    tbank = tl.ListLoader(tasks).bank()
+    tbank = tl.ListLoader(tasks).bank(device="cpu")
     probs = np.repeat(np.arange(7, dtype=np.int32), 4)
     subs = np.tile(np.array([0, 1, 0, 1], np.int32), 7)
     adapt = np.tile(np.array([True, True, False, False]), 7)
@@ -68,7 +68,7 @@ def test_pair_index_and_count():
 def test_arc_loader_bundled_matches(train):
     jd, td = jl.ARCLoader(train=train), tl.ARCLoader(train=train)
     assert [d[-1]["id"] for d in jd.data] == [d[-1]["id"] for d in td.data]
-    assert_banks_equal(jd.bank(), td.bank())
+    assert_banks_equal(jd.bank(), td.bank(device="cpu"))
 
 
 def test_miniarc_loader_null_cells(tmp_path):
@@ -82,9 +82,9 @@ def test_miniarc_loader_null_cells(tmp_path):
     jd = jl.MiniARCLoader(root=str(tmp_path))
     td = tl.MiniARCLoader(root=str(tmp_path))
     assert [d[-1] for d in jd.data] == [d[-1] for d in td.data]
-    assert_banks_equal(jd.bank(), td.bank())
+    assert_banks_equal(jd.bank(), td.bank(device="cpu"))
     assert_banks_equal(jl.MiniARCLoader().bank(5, 5),
-                       tl.MiniARCLoader().bank(5, 5))
+                       tl.MiniARCLoader().bank(5, 5, device="cpu"))
 
 
 def test_write_corpus_identical(tmp_path):

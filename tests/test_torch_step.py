@@ -27,6 +27,7 @@ from arcle_tpu.ops.table import pixel_reward as jpixel_reward
 from arcle_tpu_torch import ops as tops
 from arcle_tpu_torch.core import Action, FIELDS, state_from_numpy, \
     state_to_numpy
+from arcle_tpu_torch.testing import step_cases
 
 B = 64
 
@@ -75,6 +76,38 @@ def assert_states_equal(js, ts, what):
                                       err_msg=f"{what} field {name}")
 
 
+def step_both(jtable, ttable, jstate, tstate, sels, ops, what):
+    """One step of both packages on the same actions, every output
+    compared; returns the two new states and whether a flood was
+    deferred."""
+    jact = JAction(selection=jnp.asarray(sels), operation=jnp.asarray(ops))
+    tact = Action(selection=torch.from_numpy(sels),
+                  operation=torch.from_numpy(ops))
+
+    js, jr, jt, jp = _vstep(jstate, jact, jtable)
+    ts, tr, tt, tp = tops.plain_step_deferred(tstate, tact, ttable)
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy(),
+                                  err_msg=f"{what} pending")
+    deferred = bool(np.asarray(jp).any())
+    if deferred:
+        js = _vfinish(js, jact, jtable, jp)
+        ts = tops.finish_flood(ts, tact, ttable, tp)
+    assert_states_equal(js, ts, what)
+    np.testing.assert_array_equal(np.asarray(jr), tr.numpy(),
+                                  err_msg=f"{what} reward")
+    np.testing.assert_array_equal(np.asarray(jt), tt.numpy(),
+                                  err_msg=f"{what} terminated")
+    H, W = ts.grid.shape[-2:]
+    if (H, W) == (30, 30):      # dense_reward's domain: 30x30 or flat grids
+        np.testing.assert_allclose(
+            np.asarray(_vdense(js, jr)), tops.dense_reward(ts, tr).numpy(),
+            rtol=1e-6, err_msg=f"{what} dense_reward")
+    np.testing.assert_allclose(
+        np.asarray(_vpixel(js, W)), tops.pixel_reward(ts, W).numpy(),
+        rtol=1e-6, err_msg=f"{what} pixel_reward")
+    return js, ts, deferred
+
+
 def run_parity(jtable, ttable, jstate, rng, steps, pick_ops, what,
                select=random_selection):
     """Step both packages from ``jstate`` with the same actions."""
@@ -84,30 +117,9 @@ def run_parity(jtable, ttable, jstate, rng, steps, pick_ops, what,
     for t in range(steps):
         ops = pick_ops(rng).astype(np.int32)
         sels = np.stack([select(rng) for _ in range(B)])
-        jact = JAction(selection=jnp.asarray(sels), operation=jnp.asarray(ops))
-        tact = Action(selection=torch.from_numpy(sels),
-                      operation=torch.from_numpy(ops))
-
-        js, jr, jt, jp = _vstep(jstate, jact, jtable)
-        ts, tr, tt, tp = tops.plain_step_deferred(tstate, tact, ttable)
-        np.testing.assert_array_equal(np.asarray(jp), tp.numpy(),
-                                      err_msg=f"{what} step {t} pending")
-        if bool(np.asarray(jp).any()):
-            n_pending += 1
-            js = _vfinish(js, jact, jtable, jp)
-            ts = tops.finish_flood(ts, tact, ttable, tp)
-        assert_states_equal(js, ts, f"{what} step {t}")
-        np.testing.assert_array_equal(np.asarray(jr), tr.numpy(),
-                                      err_msg=f"{what} step {t} reward")
-        np.testing.assert_array_equal(np.asarray(jt), tt.numpy(),
-                                      err_msg=f"{what} step {t} terminated")
-        np.testing.assert_allclose(
-            np.asarray(_vdense(js, jr)), tops.dense_reward(ts, tr).numpy(),
-            rtol=1e-6, err_msg=f"{what} step {t} dense_reward")
-        np.testing.assert_allclose(
-            np.asarray(_vpixel(js, 30)), tops.pixel_reward(ts, 30).numpy(),
-            rtol=1e-6, err_msg=f"{what} step {t} pixel_reward")
-        jstate, tstate = js, ts
+        jstate, tstate, deferred = step_both(jtable, ttable, jstate, tstate,
+                                             sels, ops, f"{what} step {t}")
+        n_pending += deferred
     return jstate, n_pending
 
 
@@ -116,8 +128,10 @@ def as_numpy(jstate):
             for f in dataclasses.fields(jstate)}
 
 
-def fresh_states(jtable, seed, max_trial, reset_on_submit=False):
-    env = JBatchedEnv(table=jtable, bank=JSyntheticLoader(8, seed=0).bank(),
+def fresh_states(jtable, seed, max_trial, reset_on_submit=False, H=30,
+                 W=30):
+    loader = JSyntheticLoader(8, seed=0, min_size=2, max_size=min(H, W, 12))
+    env = JBatchedEnv(table=jtable, bank=loader.bank(H, W),
                       max_trial=max_trial,
                       opts=JResetOptions.make(reset_on_submit=reset_on_submit))
     return env.reset(jax.random.key(seed), B).env
@@ -204,3 +218,31 @@ def test_deferred_flood_serpentine():
     ts = tops.finish_flood(ts, tact, ttable, tp)
     assert_states_equal(js, ts, "serpentine")
     assert (ts.grid.numpy() == np.where(g == 1, 4, 2)).all()
+
+
+# (family, grid side): the four tables at 30x30, the 5x5 geometry of the
+# answer-given suite, and a non-square raw-table geometry
+ADVERSARIAL = {"o2arc": ("o2arc", 30, 30),
+               "o2arc_crop33": ("o2arc_crop33", 30, 30),
+               "arc": ("arc", 30, 30), "raw": ("raw", 30, 30),
+               "o2arc_5x5": ("o2arc", 5, 5), "raw_12x20": ("raw", 12, 20)}
+
+
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL))
+def test_plain_step_adversarial(case):
+    """The adversarial inputs the kernel is held to on the card (corridor
+    floods seeded at their far end, int8 selections other than 0/1,
+    object ops on envs holding an object, reset-on-submit rows), here
+    through the plain path against the JAX package."""
+    family, H, W = ADVERSARIAL[case]
+    jtable, ttable = TABLES[family](3)
+    rng = np.random.default_rng(21 + len(case))
+    st = as_numpy(fresh_states(jtable, 5, 3, H=H, W=W))
+    names = []
+    for name, s0, acts in step_cases(st, ttable, rng, steps=3):
+        js, ts = to_jax(s0), state_from_numpy(s0)
+        for t, (sels, ops) in enumerate(acts):
+            js, ts, _ = step_both(jtable, ttable, js, ts, sels, ops,
+                                  f"{case} {name} step {t}")
+        names.append(name)
+    assert "odd_selections" in names and "reset_on_submit" in names

@@ -29,7 +29,8 @@ def test_env_options_follow_the_bank():
     from arcle_tpu_torch.ops import o2arc_table
     env = BatchedEnv(table=o2arc_table(),
                      bank=SyntheticLoader(2, seed=0).bank(device="meta"),
-                     opts=ResetOptions.make(reset_on_submit=True))
+                     opts=ResetOptions.make(reset_on_submit=True,
+                                            device="cpu"))
     for f in dataclasses.fields(env.opts):
         assert getattr(env.opts, f.name).device.type == "meta", f.name
 

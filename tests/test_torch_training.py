@@ -88,7 +88,8 @@ def slice_run(deterministic: bool):
     jenv = JBatchedEnv(table=j_o2arc(3, crop_at_33=True),
                        bank=JSyntheticLoader(6, seed=0).bank(), **ENV_KW)
     tenv = BatchedEnv(table=o2arc_table(3, crop_at_33=True),
-                      bank=SyntheticLoader(6, seed=0).bank(), **ENV_KW)
+                      bank=SyntheticLoader(6, seed=0).bank(device="cpu"),
+                      **ENV_KW)
     jpol = JFCPolicy(hidden=HIDDEN, n_ops=35)
     jagent = jagents.mlp_agent(jpol)
     jbs = j_reset_jit(jenv, jax.random.key(0), B)
@@ -333,7 +334,7 @@ def test_poolless_augmented_reset():
     grid and answer is a rot90^k recolouring (one shared colour bijection)
     of a bank pair, with the dims swapped for odd k, and the grid is zero
     outside its dims."""
-    bank = SyntheticLoader(6, seed=0).bank()
+    bank = SyntheticLoader(6, seed=0).bank(device="cpu")
     env = BatchedEnv(table=o2arc_table(3, crop_at_33=True), bank=bank,
                      max_trial=3, episode_limit=2, auto_reset=True,
                      augment=True)
