@@ -4,8 +4,8 @@ A port of :mod:`arcle_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It steps thousands of O2ARCv2 / ARC / Raw environments in lockstep; the
 whole transition runs in one hand-written CUDA kernel
 (``csrc/step_kernel.cu``) on the GPU, and in plain PyTorch on the CPU.
-A PPO learner with an MLP policy trains on them.  It imports ``torch``
-and ``numpy``, never ``jax``.
+PPO and E-MAML learners train the MLP or the GPT policy on them.  It
+imports ``torch`` and ``numpy``, never ``jax``.
 
 Layout (mirrors ``arcle_tpu``)
 ------------------------------
@@ -15,8 +15,10 @@ Layout (mirrors ``arcle_tpu``)
 - ``arcle_tpu_torch.envs``    : the batched engine, augmentation, the
                                 random-action rollout loop
 - ``arcle_tpu_torch.wrappers``: bbox / point actions, obs flattening
-- ``arcle_tpu_torch.models``  : the MLP policy, weights carried from flax
-- ``arcle_tpu_torch.training``: rollout, GAE, PPO, the training entry point
+- ``arcle_tpu_torch.models``  : the MLP and GPT policies, the op + bbox
+                                distribution, weights carried from flax
+- ``arcle_tpu_torch.training``: rollout, GAE, PPO, E-MAML, the training
+                                entry points, the run supervisor
 - ``arcle_tpu_torch.utils``   : run config, metric logging, checkpoints
 """
 

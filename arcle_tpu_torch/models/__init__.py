@@ -3,11 +3,18 @@ from .mlp import (
     multi_categorical_sample, multi_categorical_log_prob,
     multi_categorical_entropy,
 )
-from .convert import fcpolicy_state_dict_from_flax, adam_state_from_optax
+from .gpt import GPTConfig, GPTPolicy, active_mask
+from .truncated_normal import TruncatedNormal
+from . import bbox_dist
+from .convert import (
+    fcpolicy_state_dict_from_flax, gpt_state_dict_from_flax,
+    adam_state_from_optax,
+)
 
 __all__ = [
     "FCPolicy", "obs_width", "stack_padded_logits", "gumbel_uniforms",
     "multi_categorical_sample", "multi_categorical_log_prob",
-    "multi_categorical_entropy", "fcpolicy_state_dict_from_flax",
-    "adam_state_from_optax",
+    "multi_categorical_entropy", "GPTConfig", "GPTPolicy", "active_mask",
+    "TruncatedNormal", "bbox_dist", "fcpolicy_state_dict_from_flax",
+    "gpt_state_dict_from_flax", "adam_state_from_optax",
 ]

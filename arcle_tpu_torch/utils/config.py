@@ -1,7 +1,9 @@
 """Run configuration.
 
-Counterpart of ``arcle_tpu/utils/config.py``, with the fields the PPO
-slice of the port uses: one serialisable dataclass tree per run.
+Counterpart of ``arcle_tpu/utils/config.py``: one serialisable
+dataclass tree per run.  The JAX package's ``ppo_chunked`` (two jitted
+units instead of one fused program, a TPU runtime's workaround) has no
+meaning in eager PyTorch and is left out.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ import dataclasses
 import json
 from typing import Tuple
 
+from ..models.gpt import GPTConfig
+from ..training.emaml import EMAMLConfig
 from ..training.ppo import PPOConfig
 
 
@@ -31,8 +35,8 @@ class EnvConfig:
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     seed: int = 0
-    algo: str = "ppo"               # ppo (emaml is not ported yet)
-    model: str = "mlp"              # mlp (gpt is not ported yet)
+    algo: str = "ppo"               # ppo | emaml
+    model: str = "mlp"              # mlp | gpt
     total_iterations: int = 1000
     checkpoint_every: int = 10      # algo.save cadence (train.py:153-154)
     log_every: int = 1
@@ -40,10 +44,14 @@ class RunConfig:
     device: str = "cuda"            # the engine's and the learner's device
     env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
     ppo: PPOConfig = dataclasses.field(default_factory=PPOConfig)
+    emaml: EMAMLConfig = dataclasses.field(default_factory=EMAMLConfig)
+    gpt: GPTConfig = dataclasses.field(default_factory=GPTConfig)
     mlp_hidden: Tuple[int, ...] = (1024, 1024, 512, 512, 256, 128)
     mlp_dtype: str = "float32"      # only float32 is ported
 
     def to_json(self) -> str:
+        """The tree as JSON; a torch dtype becomes its name
+        (``"torch.bfloat16"``)."""
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
 
 

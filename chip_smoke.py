@@ -15,7 +15,8 @@ Phases, each printing its numbers on a line of its own:
               o2arc_table (with and without crop_at_33), arc_table and
               raw_table at 30x30, o2arc at 5x5, and raw / arc at 12x20, 5x7
               and 16x64 (the instantiation with runtime H, W), each after
-              the adversarial cases of ``ops.adversarial`` (corridor floods
+              the adversarial cases of ``arcle_tpu_torch/testing.py``
+              (corridor floods
               seeded at their far end, int8 selections other than 0/1,
               object ops on envs holding an object, reset-on-submit rows);
               every state field, the reward and `terminated` bit-exact;
@@ -44,7 +45,31 @@ Phases, each printing its numbers on a line of its own:
               wrapper's host time per call (host clock, 200 calls), the
               host-inclusive time of a loop of wrapper calls, and the plain
               step; then the 100-step loop through the kernel and through
-              the plain step.
+              the plain step; and the kernel's device time at B=2 and B=64
+              at 30x30, the batches train_gpt's E-MAML and PPO launch it at;
+7. gpt     -- the GPT policy at full width (GPTConfig(): 8 layers, 16
+              heads, width 128, T=1837) on the card against the same
+              weights on the CPU, B=8 from an O2ARCv2 reset as in
+              ``__graft_entry__.entry``, both passes (plain and
+              action-conditioned): float32 (TF32 off) within 1e-4 of each
+              output's largest magnitude, bf16 within 0.2 of the float32
+              output's; one ``evaluate_fn`` gradient at B=4 in float32
+              within 1e-3 of each tensor's largest entry; forward ms;
+8. emaml   -- train_gpt's E-MAML path through ``run_emaml`` at full width
+              (2 tasks x 1 env x 100-step rollouts, 2 micro-batches,
+              first-order, chunked, cached chain, KL from the surrogate
+              pass, bf16) with inner_steps cut 20 -> 2 and maml_opt_steps
+              5 -> 2, one warm-up and one timed meta-iteration: exactly
+              rollout_steps x (inner_steps + 1) step-kernel launches per
+              meta-iteration, finite meta loss, moved params, the KL
+              ladder rule; seconds per meta-iteration with its rollout /
+              inner-update / outer split (``unit_times``, CUDA events),
+              env-steps/s and peak memory;
+9. gpt-ppo -- train_gpt ``--algo ppo --aux-coeff 0.1`` through ``run_ppo``:
+              64 envs, T=100, 100 minibatches, vf_coeff 0.5; one warm-up
+              and one timed iteration: 100 launches per iteration, finite
+              aux losses, ms/iter with the rollout / update split, peak
+              memory.
 
 It then prints a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
@@ -69,6 +94,14 @@ import torch
 B = 4096
 PARITY_STEPS = 30
 MAIN_STEPS = 100
+GPT_B, GPT_GRAD_B = 8, 4       # entry()'s batch; the gradient check's
+GPT_F32_TOL = 1e-4             # of each output's largest magnitude
+GPT_BF16_TOL = 0.2             # of the float32 output's largest magnitude
+GPT_GRAD_TOL = 1e-3            # of each gradient tensor's largest entry,
+                               # plus 1e-6 of the largest of all (a sum
+                               # that cancels to ~0 has no scale of its own)
+EMAML_INNER, EMAML_META = 2, 2  # train_gpt's 20 and 5, cut
+GPT_BATCHES = (2, 64)          # train_gpt's E-MAML and PPO env batches
 
 
 def log(*a):
@@ -135,7 +168,7 @@ def check_step(st, act, table, what: str) -> tuple:
 
 
 def check_adversarial(st, table, seed: int, what: str) -> float:
-    """``ops.adversarial.step_cases`` on the states ``st``: corridor floods
+    """``testing.step_cases`` on the states ``st``: corridor floods
     seeded at their far end, int8 selections other than 0/1, object ops on
     envs holding an object, reset-on-submit rows."""
     import numpy as np
@@ -441,6 +474,250 @@ def phase_train(dev, card: str):
     return launches
 
 
+def gpt_state(n: int):
+    """``__graft_entry__.entry``'s batch: ``n`` O2ARCv2 envs reset on
+    SyntheticLoader(4, seed=0), on the CPU."""
+    from arcle_tpu_torch.envs import BatchedEnv
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    from arcle_tpu_torch.ops import o2arc_table
+    env = BatchedEnv(table=o2arc_table(max_trial=3),
+                     bank=SyntheticLoader(4, seed=0).bank(device="cpu"),
+                     max_trial=3, episode_limit=10, auto_reset=True)
+    return env.reset(torch.Generator().manual_seed(0), n).env
+
+
+def phase_gpt(dev, card: str) -> dict:
+    """The full-width GPT on the card against the CPU, same weights, both
+    passes, float32 and bf16; one evaluate_fn gradient; forward ms."""
+    from arcle_tpu_torch.models import GPTConfig, GPTPolicy
+    from arcle_tpu_torch.training.agents import gpt_agent
+    from arcle_tpu_torch.wrappers import full_flatten_obs
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("gpt: float32 matmuls are not full float32")
+    s = gpt_state(GPT_B)
+    names = ("grid", "grid_dim", "input", "input_dim", "trials_remain",
+             "active")
+    args_c = [getattr(s, n) for n in names]
+    args_g = [a.to(dev) for a in args_c]
+    gen = torch.Generator().manual_seed(1)
+    passes = {"plain": {}, "conditioned": dict(
+        operation=torch.randint(0, 35, (GPT_B,), generator=gen),
+        bbox=torch.rand((GPT_B, 4), generator=gen))}
+    ref, worst, ms = {}, {}, {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bf16", torch.bfloat16)):
+        pol_c = GPTPolicy(GPTConfig(dtype=dtype),
+                          generator=torch.Generator().manual_seed(0))
+        pol_g = copy.deepcopy(pol_c).to(dev)
+        for pname, kw in passes.items():
+            kw_g = {k: v.to(dev) for k, v in kw.items()}
+            with torch.no_grad():
+                out_c = pol_c(*args_c, **kw)
+                out_g = pol_g(*args_g, **kw_g)
+                torch.cuda.synchronize()
+                ms[f"{dname} {pname}"] = min(_event_ms(
+                    lambda: pol_g(*args_g, **kw_g), 10) for _ in range(2))
+            if dname == "float32":
+                ref[pname] = out_c
+            tol = GPT_F32_TOL if dname == "float32" else GPT_BF16_TOL
+            for k, c in out_c.items():
+                g = out_g[k].float().cpu()
+                if tuple(g.shape) != tuple(c.shape) or \
+                        not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"gpt: {dname} {pname} {k} shape "
+                                         f"{tuple(g.shape)} or not finite")
+                scale = float(ref[pname][k].abs().max())
+                err = max_abs_diff(g, c.float())
+                if not err <= tol * scale:
+                    raise AssertionError(
+                        f"gpt: {dname} {pname} {k}: card vs cpu {err:.3e} "
+                        f"> {tol} x {scale:.3e}")
+                worst[dname] = max(worst.get(dname, 0.0), err / scale)
+
+    # one evaluate_fn gradient in float32 (through the recomputed blocks)
+    pol_c = GPTPolicy(GPTConfig(dtype=torch.float32),
+                      generator=torch.Generator().manual_seed(0))
+    pol_g = copy.deepcopy(pol_c).to(dev)
+    agent = gpt_agent(pol_c)
+    obs = full_flatten_obs(s)[:GPT_GRAD_B]
+    acts = torch.cat([torch.randint(0, 30, (GPT_GRAD_B, 4), generator=gen),
+                      torch.randint(0, 35, (GPT_GRAD_B, 1), generator=gen)],
+                     1).to(torch.int32)
+    grads = {}
+    for name, pol, d in (("cuda", pol_g, dev), ("cpu", pol_c, "cpu")):
+        lp, value, ent = agent.evaluate_fn(pol, obs.to(d), acts.to(d))
+        (lp.sum() + value.sum() + ent.sum()).backward()
+        grads[name] = {k: p.grad.cpu() for k, p in pol.named_parameters()
+                       if p.grad is not None}
+    if set(grads["cuda"]) != set(grads["cpu"]) or not grads["cpu"]:
+        raise AssertionError("gpt: gradients reach other parameters")
+    worst_grad = 0.0
+    top = max(float(c.abs().max()) for c in grads["cpu"].values())
+    for k, c in grads["cpu"].items():
+        scale = float(c.abs().max())
+        err = max_abs_diff(grads["cuda"][k], c)
+        if not err <= GPT_GRAD_TOL * scale + 1e-6 * top:
+            raise AssertionError(f"gpt: grad {k} card vs cpu {err:.3e} > "
+                                 f"{GPT_GRAD_TOL} x {scale:.3e} + 1e-6 x "
+                                 f"{top:.3e}")
+        worst_grad = max(worst_grad, err / (scale + 1e-3 * top))
+    c = pol_c.cfg
+    log(f"gpt: GPTConfig() {c.n_layer}L/{c.n_head}H/{c.n_embd}E "
+        f"T={c.num_tokens}, B={GPT_B}, card vs cpu, both "
+        f"passes: float32 worst {worst['float32']:.3e} of the output's "
+        f"scale (tol {GPT_F32_TOL}), bf16 worst {worst['bf16']:.3e} (tol "
+        f"{GPT_BF16_TOL}); evaluate_fn gradient B={GPT_GRAD_B} float32 "
+        f"worst {worst_grad:.3e} of each tensor's scale (tol "
+        f"{GPT_GRAD_TOL}, + 1e-6 of the largest gradient {top:.3e}), "
+        f"{len(grads['cpu'])} tensors; TF32 off")
+    log(f"timing gpt forward B={GPT_B}: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f" (CUDA events, 10 calls; {card})")
+    return ms
+
+
+def phase_emaml(dev, card: str) -> dict:
+    """train_gpt's E-MAML envelope through ``run_emaml``, inner and meta
+    steps cut; one warm-up and one timed meta-iteration."""
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.training import train_gpt
+    from arcle_tpu_torch.training.train import build_agent, run_emaml
+    from arcle_tpu_torch.utils import MetricLogger
+
+    cfg, _ = train_gpt.parse_config([
+        "--device", "cuda", "--iterations", "2",
+        "--inner-steps", str(EMAML_INNER), "--meta-steps", str(EMAML_META)])
+    cfg = dataclasses.replace(cfg, checkpoint_every=0)
+    e = cfg.emaml
+    per_iter = e.rollout_steps * (e.inner_steps + 1)
+    env_steps = e.n_tasks * e.envs_per_task * per_iter
+    init = build_agent(cfg).init_fn(torch.Generator().manual_seed(cfg.seed))
+    rows = []
+    kc = [torch.full((e.n_tasks, e.inner_steps), 0.0005)]
+    t_prev = [0.0]
+
+    def on_iteration(i, st, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        launches = step_kernel.LAUNCHES - sum(r["launches"] for r in rows)
+        if launches != per_iter:
+            raise AssertionError(f"emaml: meta-iteration {i} launched the "
+                                 f"step kernel {launches} times, not "
+                                 f"{per_iter}")
+        loss = float(m["meta_loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"emaml: meta-iteration {i} loss {loss}")
+        kls = m["inner_kls"].cpu()
+        want = torch.where(kls > 2.0 * e.kl_target, kc[0] * 1.5, kc[0])
+        want = torch.where(kls < 0.5 * e.kl_target, want * 0.5, want)
+        if not torch.equal(st.kl_coeffs.cpu(), want):
+            raise AssertionError(f"emaml: kl_coeffs {st.kl_coeffs} do not "
+                                 f"follow the ladder from {kc[0]} at {kls}")
+        kc[0] = st.kl_coeffs.cpu()
+        ut = m["unit_times"]
+        part = lambda *names: sum(ut[n]["s"] for n in names if n in ut)
+        rows.append(dict(loss=loss, launches=launches, s=now - t_prev[0],
+                         rollout=part("rollout", "rollout[det]"),
+                         inner=part("update+chain", "update"),
+                         outer=part("outer", "shift", "chain"),
+                         kls=kls.tolist(), kc=kc[0].tolist(),
+                         post=float(m["post_eprew_mean"])))
+        t_prev[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_kernel.LAUNCHES = 0
+    t_prev[0] = time.perf_counter()
+    pol = run_emaml(cfg, MetricLogger(None), on_iteration=on_iteration,
+                    profile=True)
+    torch.cuda.synchronize()
+    launches = step_kernel.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if len(rows) != cfg.total_iterations:
+        raise AssertionError(f"emaml: {len(rows)} meta-iterations ran")
+    if all(torch.equal(a.cpu(), b) for a, b in
+           zip(pol.state_dict().values(), init.state_dict().values())):
+        raise AssertionError("emaml: the params did not change")
+    for i, r in enumerate(rows):
+        split = r["rollout"] + r["inner"] + r["outer"]
+        tag = " (warm-up, set-up included)" if i == 0 else ""
+        log(f"emaml meta-iteration {i}{tag}: "
+            f"{r['s']:.3f} s (host clock), units {split:.3f} s = rollout "
+            f"{r['rollout']:.3f} + inner update {r['inner']:.3f} + outer "
+            f"{r['outer']:.3f} s (CUDA events); {env_steps / r['s']:,.1f} "
+            f"env-steps/s; meta loss {r['loss']:.5f}, post eprew "
+            f"{r['post']:.3f}, inner KLs {r['kls']}, kl_coeffs {r['kc']}; "
+            f"{r['launches']} kernel launches at B="
+            f"{e.n_tasks * e.envs_per_task} ({card})")
+    g = cfg.gpt
+    log(f"emaml: train_gpt envelope, GPT {g.n_layer}L/{g.n_head}H/"
+        f"{g.n_embd}E {g.dtype}, {e.n_tasks} "
+        f"tasks x {e.envs_per_task} env x {e.rollout_steps} steps, n_micro "
+        f"{e.n_micro}, inner_steps cut 20 -> {e.inner_steps}, "
+        f"maml_opt_steps cut 5 -> {e.maml_opt_steps}, cached chain, KL from "
+        f"the surrogate pass: {rows[-1]['s']:.3f} s per meta-iteration, "
+        f"peak memory {peak_gb:.2f} GiB, {per_iter} kernel launches per "
+        f"meta-iteration ({card})")
+    return dict(launches=launches, per_iteration=per_iter,
+                s=rows[-1]["s"], peak_gb=peak_gb)
+
+
+def phase_gpt_ppo(dev, card: str) -> int:
+    """train_gpt --algo ppo --aux-coeff 0.1 through ``run_ppo``; one
+    warm-up and one timed iteration."""
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.training import train_gpt
+    from arcle_tpu_torch.training.train import run_ppo
+    from arcle_tpu_torch.utils import MetricLogger
+
+    cfg, _ = train_gpt.parse_config(["--algo", "ppo", "--aux-coeff", "0.1",
+                                     "--device", "cuda", "--iterations",
+                                     "2"])
+    cfg = dataclasses.replace(cfg, checkpoint_every=0)
+    T, n = cfg.env.episode_limit, cfg.env.n_envs
+    aux = ("aux_loss", "aux_rtm1_loss", "aux_r_loss", "aux_grid_loss")
+    rows = []
+
+    def on_iteration(i, run, traj, stats):
+        launches = step_kernel.LAUNCHES - sum(r["launches"] for r in rows)
+        if launches != T:
+            raise AssertionError(f"gpt-ppo: iteration {i} launched the step "
+                                 f"kernel {launches} times, not {T}")
+        vals = {k: float(stats[k]) for k in aux + ("total_loss",)}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"gpt-ppo: iteration {i}: {vals}")
+        rows.append(dict(vals, launches=launches,
+                         rollout_ms=stats["rollout_ms"],
+                         update_ms=stats["update_ms"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_kernel.LAUNCHES = 0
+    run_ppo(cfg, MetricLogger(None), on_iteration=on_iteration)
+    torch.cuda.synchronize()
+    launches = step_kernel.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if len(rows) != cfg.total_iterations:
+        raise AssertionError(f"gpt-ppo: {len(rows)} iterations ran")
+    for i, r in enumerate(rows):
+        ms = r["rollout_ms"] + r["update_ms"]
+        log(f"gpt-ppo iter {i}{' (warm-up)' if i == 0 else ''}: "
+            f"{ms:.1f} ms/iter = rollout {r['rollout_ms']:.1f} + update "
+            f"{r['update_ms']:.1f} ms (CUDA events), "
+            f"{n * T / ms * 1e3:,.0f} env-steps/s incl. learner; loss "
+            f"{r['total_loss']:.5f}, aux " + ", ".join(
+                f"{k} {r[k]:.5f}" for k in aux) + f" ({card})")
+    g = cfg.gpt
+    log(f"gpt-ppo: train_gpt --algo ppo --aux-coeff 0.1, GPT {g.n_layer}L/"
+        f"{g.n_head}H/{g.n_embd}E {g.dtype}, {n} envs x T={T}, "
+        f"{cfg.ppo.n_minibatches} minibatches: "
+        f"peak memory {peak_gb:.2f} GiB, {launches} kernel launches in "
+        f"{len(rows)} iterations ({card})")
+    return launches
+
+
 def _event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -560,9 +837,10 @@ def time_groups(st, acts, table, card: str) -> None:
         f"{', '.join(parts)} ({card})")
 
 
-def time_kernel(dev, card: str, H: int, W: int) -> dict:
-    """Device time, host time, bound and plain time of the kernel at B on
-    O2ARCv2 with random bbox actions, on an ``H x W`` bank."""
+def time_kernel(dev, card: str, H: int, W: int, batch: int = B) -> dict:
+    """Device time, host time, bound and plain time of the kernel at
+    ``batch`` envs on O2ARCv2 with random bbox actions, on an ``H x W``
+    bank."""
     from arcle_tpu_torch.envs import BatchedEnv, random_bbox_actions
     from arcle_tpu_torch.loaders import SyntheticLoader
     from arcle_tpu_torch.ops import finish_flood, o2arc_table
@@ -574,9 +852,9 @@ def time_kernel(dev, card: str, H: int, W: int) -> dict:
     env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
                      max_trial=-1, episode_limit=100, auto_reset=True,
                      reset_pool=8)
-    st = env.reset(torch.Generator(device=dev).manual_seed(2), B).env
+    st = env.reset(torch.Generator(device=dev).manual_seed(2), batch).env
     gen = torch.Generator(device=dev).manual_seed(3)
-    acts = [random_bbox_actions(gen, B, table.n_ops, H, W, dev)
+    acts = [random_bbox_actions(gen, batch, table.n_ops, H, W, dev)
             for _ in range(8)]
 
     def plain(s, a, t):
@@ -604,13 +882,13 @@ def time_kernel(dev, card: str, H: int, W: int) -> dict:
         _event_ms(f, 5)                                      # warm-up
     loop_ms = [_event_ms(kernel_call, 50) for _ in range(2)]
     plain_ms = [_event_ms(plain_call, 10) for _ in range(2)]
-    if (H, W) == (30, 30):
+    if (H, W) == (30, 30) and batch == B:
         time_groups(st, acts, table, card)
     out = dict(device_ms=min(dev_ms), host_us=min(h_us),
                ms=min(loop_ms), plain_ms=min(plain_ms), bound_ms=bound_ms,
                bytes_per_launch=nbytes,
                roofline_share=bound_ms / min(dev_ms))
-    log(f"timing kernel B={B} {H}x{W} O2ARCv2 random bbox: device "
+    log(f"timing kernel B={batch} {H}x{W} O2ARCv2 random bbox: device "
         f"{dev_ms[0] * 1e3:.2f} / {dev_ms[1] * 1e3:.2f} us per launch "
         f"(CUDA graph of 20 dependent launches, CUDA events); bound "
         f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.3f} MB per launch at "
@@ -629,6 +907,11 @@ def phase_timing(dev, card: str) -> dict:
 
     by_geometry = {f"{h}x{w}": time_kernel(dev, card, h, w)
                    for h, w in ((30, 30), (5, 5))}
+    # the batches train_gpt launches the kernel at: E-MAML's 2 tasks x 1
+    # env, GPT PPO's 64 envs
+    for batch in GPT_BATCHES:
+        by_geometry[f"30x30_B{batch}"] = time_kernel(dev, card, 30, 30,
+                                                     batch)
 
     env = main_env(dev)
     table = env.table
@@ -663,9 +946,10 @@ def phase_timing(dev, card: str) -> dict:
     return by_geometry
 
 
-def device_work(fn, steps: int) -> tuple:
+def device_work(fn, steps: int, match=("step_kernel",)) -> tuple:
     """Device microseconds and device operations per step of ``fn`` (which
-    runs ``steps`` steps), and the step kernel's share, from
+    runs ``steps`` steps), and the device microseconds of the kernels
+    whose name holds one of ``match`` (the step kernel's share), from
     ``torch.profiler``'s device events."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -676,7 +960,8 @@ def device_work(fn, steps: int) -> tuple:
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.device_time for e in events)
-    kernel = sum(e.device_time for e in events if "step_kernel" in e.name)
+    kernel = sum(e.device_time for e in events
+                 if any(m in e.name for m in match))
     return total / steps, len(events) / steps, kernel / steps
 
 
@@ -708,6 +993,71 @@ def phase_profile(dev, card: str):
     log(f"profile PPO rollout: {us:.1f} us of device work in {ops:.1f} "
         f"device operations per step, step_kernel {k_us:.1f} us "
         f"(torch.profiler device events; {card})")
+    phase_profile_gpt(dev, card)
+
+
+def phase_profile_gpt(dev, card: str):
+    """Device work of the default (bf16) GPT forward at the batches the
+    GPT paths run it at, with the attention kernels' share; and of
+    train_gpt's E-MAML rollout per step, beside its wall clock."""
+    from arcle_tpu_torch.models import GPTConfig, GPTPolicy
+    from arcle_tpu_torch.training import train_gpt
+    from arcle_tpu_torch.training.emaml import init_emaml, task_rollout
+    from arcle_tpu_torch.training.train import build_agent
+    from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
+    from arcle_tpu_torch.utils import make_loader, make_table
+
+    pol = GPTPolicy(GPTConfig(), generator=torch.Generator().manual_seed(0))
+    pol = pol.to(dev)
+    names = ("grid", "grid_dim", "input", "input_dim", "trials_remain",
+             "active")
+    attn = ("fmha", "attention")
+    for n in (1, 8, 64):
+        st = gpt_state(n)
+        args = [getattr(st, k).to(dev) for k in names]
+
+        def fwd():
+            with torch.no_grad():
+                pol(*args)
+        fwd()                                               # warm-up
+        wall = _event_ms(fwd, 5)
+        us, ops, a_us = device_work(fwd, 1, attn)
+        log(f"profile gpt forward B={n}: {us:.1f} us of device work in "
+            f"{ops:.0f} device operations, attention kernels {a_us:.1f} "
+            f"us ({a_us / us:.1%}); {wall:.3f} ms per call (CUDA events) "
+            f"(torch.profiler device events; {card})")
+
+    cfg, _ = train_gpt.parse_config(["--device", "cuda"])
+    e = cfg.emaml
+    agent = build_agent(cfg)
+    st = init_emaml(agent, e, 0, n_bank_tasks=cfg.env.n_synthetic_tasks,
+                    device=dev)
+    prob = torch.arange(e.n_tasks, device=dev).repeat_interleave(
+        e.envs_per_task)
+    env = BatchedEnv(table=make_table(cfg.env),
+                     bank=make_loader(cfg.env).bank(device=dev),
+                     max_trial=cfg.env.max_trial,
+                     episode_limit=cfg.env.episode_limit,
+                     dense_reward=True, augment=True,
+                     reset_pool=cfg.env.reset_pool,
+                     opts=ResetOptions.make(prob_index=prob, device=dev))
+    bs = [env.reset(torch.Generator(device=dev).manual_seed(0),
+                    e.n_tasks * e.envs_per_task)]
+    params = [dict(st.params.named_parameters())] * e.n_tasks
+    steps = 10
+    short = dataclasses.replace(e, rollout_steps=steps)
+
+    def roll():
+        bs[0], _, _ = task_rollout(env, bs[0], params, st.generator, agent,
+                                   short, False)
+    roll()                                                  # warm-up
+    wall = _event_ms(roll, 1) / steps
+    us, ops, k_us = device_work(roll, steps)
+    log(f"profile E-MAML rollout (train_gpt, {e.n_tasks} tasks x "
+        f"{e.envs_per_task} env): {us:.1f} us of device work in {ops:.1f} "
+        f"device operations per step, step_kernel {k_us:.1f} us; "
+        f"{wall:.3f} ms per step (CUDA events) (torch.profiler device "
+        f"events; {card})")
 
 
 def main() -> int:
@@ -742,18 +1092,26 @@ def main() -> int:
     launches["train"] = phase_train(dev, card)
     timing = phase_timing(dev, card)
     t30 = timing["30x30"]
+    gpt_ms = phase_gpt(dev, card)
+    emaml = phase_emaml(dev, card)
+    launches["emaml"] = emaml["launches"]
+    launches["gpt_ppo"] = phase_gpt_ppo(dev, card)
 
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
         "source": "arcle_tpu_torch/csrc/step_kernel.cu",
         "replaces": "arcle_tpu/ops/pallas_step.py:248",
         "launches": sum(launches.values()), "launches_by_path": launches,
+        "launches_per_meta_iteration": emaml["per_iteration"],
         "max_abs_err": worst,
         "ms": t30["ms"], "plain_ms": t30["plain_ms"],
         "device_ms": t30["device_ms"], "host_us": t30["host_us"],
         "bound_ms": t30["bound_ms"], "bound_by": "bytes",
         "bytes_per_launch": t30["bytes_per_launch"],
-        "library_ms": None, "by_geometry": timing}]}
+        "library_ms": None, "by_geometry": timing}],
+        "gpt_forward_ms": gpt_ms,
+        "emaml_s_per_meta_iteration": emaml["s"],
+        "emaml_peak_gb": emaml["peak_gb"]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -76,7 +76,8 @@ def test_smoke_ppo_cuda_matches_cpu(cuda_device, monkeypatch):
     """Two ``--smoke`` PPO iterations on the card (through the step
     kernel) and on the CPU (through the plain step): the losses agree at
     rtol 1e-4 (atol 1e-6 for the means that cancel to ~0)."""
-    cfg, _ = ttrain.parse_config(["--smoke", "--device", "cpu"])
+    cfg, _ = ttrain.parse_config(["--algo", "ppo", "--smoke", "--device",
+                                  "cpu"])
     start = ttrain.setup_ppo(cfg).bs.env
     cpu = _smoke_iterations(cfg, start, monkeypatch)
     launches = step_kernel.LAUNCHES
@@ -90,3 +91,86 @@ def test_smoke_ppo_cuda_matches_cpu(cuda_device, monkeypatch):
             torch.testing.assert_close(g[k].cpu(), c[k], rtol=1e-4,
                                        atol=1e-6, msg=f"iteration {i} {k}")
         assert torch.isfinite(g["total_loss"])
+
+
+def _gpt_emaml_iteration(device, start_env, monkeypatch):
+    """One meta-iteration of train_gpt's E-MAML step (chunked, cached
+    chain, the KL read off the surrogate pass, two micro-batches) with a
+    float32 GPT on ``device``, from weights drawn on the CPU.  Reset pools
+    and sampling uniforms come from CPU generators seeded alike, so both
+    devices take the same actions."""
+    from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    from arcle_tpu_torch.models import GPTConfig, GPTPolicy
+    from arcle_tpu_torch.ops import o2arc_table
+    temaml, tagents = (importlib.import_module(
+        f"arcle_tpu_torch.training.{m}") for m in ("emaml", "agents"))
+    tbd, ttn = (importlib.import_module(f"arcle_tpu_torch.models.{m}")
+                for m in ("bbox_dist", "truncated_normal"))
+    pool_gen, op_gen, bb_gen = (torch.Generator().manual_seed(s)
+                                for s in (1, 2, 3))
+
+    def pool_on_cpu(env, generator, batch):
+        cpu_env = dataclasses.replace(env, bank=env.bank.to("cpu"))
+        return _to(make_reset_pool(cpu_env, pool_gen, batch), env.device)
+
+    monkeypatch.setattr(troll, "make_reset_pool", pool_on_cpu)
+    monkeypatch.setattr(tbd, "gumbel_uniforms", lambda shape, gen, dev: (
+        torch.rand(shape, generator=op_gen).clamp_(min=1e-12).to(dev)))
+    monkeypatch.setattr(ttn, "sample_uniforms", lambda shape, gen, dev: (
+        1e-6 + torch.rand(shape, generator=bb_gen) * (1 - 2e-6)).to(dev))
+    cfg = temaml.EMAMLConfig(n_tasks=2, envs_per_task=2, rollout_steps=6,
+                             inner_steps=2, maml_opt_steps=2, n_micro=2,
+                             first_order=True, chunked=True, cache_chain=True,
+                             kl_ladder_grads=False)
+    agent = tagents.gpt_agent(GPTPolicy(GPTConfig(
+        n_layer=2, n_head=4, n_embd=32, dtype=torch.float32)))
+    st = temaml.init_emaml(agent, cfg, 0, n_bank_tasks=8, device=device)
+    env = BatchedEnv(table=o2arc_table(7, crop_at_33=True),
+                     bank=SyntheticLoader(8, seed=7).bank(device=device),
+                     max_trial=7, episode_limit=10, auto_reset=True,
+                     dense_reward=True, augment=True, reset_pool=8,
+                     opts=ResetOptions.make(
+                         prob_index=torch.tensor([3, 3, 5, 5]),
+                         device=device))
+    bs = BatchedState(env=_to(start_env, device),
+                      generator=torch.Generator(device=device))
+    launches = step_kernel.LAUNCHES
+    st, _, metrics = temaml.make_chunked_train_step(agent, cfg)(st, env, bs)
+    return st, metrics, step_kernel.LAUNCHES - launches
+
+
+@pytest.mark.gpu
+def test_gpt_emaml_cuda_matches_cpu(cuda_device, monkeypatch):
+    """train_gpt's E-MAML step on the card (every rollout step through the
+    step kernel) and on the CPU: rollout_steps x (inner_steps + 1) = 18
+    kernel launches, meta loss and rewards rtol 1e-4 / atol 1e-6, the
+    params after the AdamW meta steps atol 1e-5 (all but the op head's
+    last bias, whose gradient is 0 up to rounding)."""
+    from arcle_tpu_torch.envs import BatchedEnv
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    from arcle_tpu_torch.ops import o2arc_table
+    start = BatchedEnv(table=o2arc_table(7, crop_at_33=True),
+                       bank=SyntheticLoader(8, seed=7).bank(device="cpu"),
+                       max_trial=7).reset(torch.Generator().manual_seed(0),
+                                          4).env
+    cpu_st, cpu_m, cpu_launches = _gpt_emaml_iteration("cpu", start,
+                                                       monkeypatch)
+    gpu_st, gpu_m, gpu_launches = _gpt_emaml_iteration(cuda_device, start,
+                                                       monkeypatch)
+    torch.cuda.synchronize()
+    assert cpu_launches == 0 and gpu_launches == 6 * 3
+    for k in ("meta_loss", "outer_total_loss", "adapt_reward_mean",
+              "post_reward_mean", "inner_kl_mean"):
+        torch.testing.assert_close(gpu_m[k].cpu(), cpu_m[k], rtol=1e-4,
+                                   atol=1e-6, msg=k)
+    assert torch.isfinite(gpu_m["meta_loss"])
+    cpu_sd = cpu_st.params.state_dict()
+    for k, v in gpu_st.params.state_dict().items():
+        if k == "head_operation.Dense_2.bias":
+            # shifting every op logit changes no softmax, so this bias's
+            # gradient is 0 up to rounding, which AdamW's normalisation
+            # turns into steps of up to meta_lr on either device
+            continue
+        torch.testing.assert_close(v.cpu(), cpu_sd[k], rtol=0, atol=1e-5,
+                                   msg=k)

@@ -430,9 +430,7 @@ def test_checkpointer_keeps_five(tmp_path):
     assert float(ck.restore(4)["x"][0]) == 4.0
 
 
-@pytest.mark.parametrize("flag", [("--algo", "emaml"), ("--model", "gpt"),
-                                  ("--dtype", "bfloat16")],
-                         ids=["emaml", "gpt", "bf16"])
+@pytest.mark.parametrize("flag", [("--dtype", "bfloat16")], ids=["bf16"])
 def test_unported_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         ttrain.main(smoke_args(tmp_path, *flag))
@@ -448,11 +446,16 @@ def test_cuda_without_card_raises(tmp_path):
 
 
 def test_train_imports_no_jax():
-    """Importing the training entry point in a fresh interpreter leaves jax,
-    flax, optax and arcle_tpu out of sys.modules."""
+    """Importing the training entry points, E-MAML and the GPT in a fresh
+    interpreter leaves jax, flax, optax and arcle_tpu out of
+    sys.modules."""
     code = (
         "import sys\n"
         "import arcle_tpu_torch.training.train\n"
+        "import arcle_tpu_torch.training.train_gpt\n"
+        "import arcle_tpu_torch.training.emaml\n"
+        "import arcle_tpu_torch.training.supervise\n"
+        "import arcle_tpu_torch.models.gpt\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'arcle_tpu'))\n"
         "assert not bad, bad\n"
