@@ -54,6 +54,14 @@ def gpt_state_dict_from_flax(params: Mapping[str, Any]
     return _state_dict_from_flax(params)
 
 
+def hypermlp_state_dict_from_flax(params: Mapping[str, Any]
+                                  ) -> "OrderedDict[str, torch.Tensor]":
+    """A flax ``HyperMLP`` (or ``WLinear``) param tree -> the port's
+    ``state_dict``: ``wl_0/z`` keeps its name, ``wl_0/fc/kernel`` becomes
+    ``wl_0.fc.weight`` (transposed)."""
+    return _state_dict_from_flax(params)
+
+
 def _find_adam(opt_state: Any) -> Any:
     """The ``ScaleByAdamState`` (fields count, mu, nu) inside an optax
     chain's state."""

@@ -6,8 +6,11 @@ tanh) with one categorical head per element of the BBoxWrapper action
 tuple (x1: H, y1: W, x2: H, y2: W, op: n_ops) and a value head.
 
 The heads are stacked into one ``[..., 5, N]`` tensor padded with -inf, so
-sampling, log-prob and entropy are one pass over all five heads.  Only
-float32 is ported; the bf16 torso waits (ROADMAP queue 1 item 7).
+sampling, log-prob and entropy are one pass over all five heads.
+
+:class:`WLinear` / :class:`HyperMLP` are the hypernetwork-style linear
+layers (weights generated from a learned latent ``z``) of the reference's
+MLPPolicy (agents/models/MLPPolicy.py:6-34).
 """
 
 from __future__ import annotations
@@ -42,6 +45,11 @@ class FCPolicy(nn.Module):
     kernels lecun-normal (truncated), ``pi`` orthogonal with gain 0.01,
     ``vf`` orthogonal with gain 1.0, zero biases; ``generator`` (a CPU
     ``torch.Generator``) makes the draw reproducible on any device.
+
+    ``dtype`` is the torso's compute dtype, as flax's ``Dense(dtype=)``:
+    the parameters stay float32, each torso layer casts its input, kernel
+    and bias to ``dtype`` (``torch.bfloat16`` runs the torso on the tensor
+    cores), and the ``pi`` / ``vf`` heads compute in float32.
     """
 
     def __init__(self, hidden: Sequence[int] = (1024, 1024, 512, 512, 256,
@@ -51,11 +59,8 @@ class FCPolicy(nn.Module):
                  obs_dim: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"FCPolicy: dtype {dtype} is not ported; only float32 is "
-                "(the bf16 torso is queued in ROADMAP.md queue 1 item 7)")
         self.hidden = tuple(hidden)
+        self.dtype = dtype
         self.sizes = (H, W, H, W, n_ops)
         widths = [obs_width(H, W) if obs_dim is None else obs_dim,
                   *self.hidden]
@@ -86,9 +91,12 @@ class FCPolicy(nn.Module):
 
     def forward(self, obs: torch.Tensor
                 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
-        x = obs.to(torch.float32)
+        dt = self.dtype
+        x = obs.to(dt)
         for layer in self.torso():
-            x = torch.tanh(layer(x))
+            x = torch.tanh(F.linear(x, layer.weight.to(dt),
+                                    layer.bias.to(dt)))
+        x = x.to(torch.float32)
         logits = self.pi(x)
         value = self.vf(x).squeeze(-1)
         return tuple(torch.split(logits, self.sizes, dim=-1)), value
@@ -143,3 +151,59 @@ def multi_categorical_entropy(logits_tuple) -> torch.Tensor:
     # derivative poisons the backward pass even behind a where()
     ls_safe = torch.where(torch.isfinite(ls), ls, torch.zeros_like(ls))
     return -torch.sum(p * ls_safe, dim=(-2, -1))
+
+
+class WLinear(nn.Module):
+    """Linear layer whose weights are generated from a learned latent ``z``
+    (MLPPolicy.py:6-34): ``theta = fc(z)``; ``y = x @ W + b`` with ``W`` the
+    first ``in * out`` entries of ``theta`` as ``[in, out]`` and ``b`` the
+    rest.  The latent is the only fast-adapted parameter of the
+    hypernetwork variant.  Initialised as flax does: ``z`` ~ N(0,
+    1/out_features), ``fc`` lecun-normal (truncated) with a zero bias."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 z_dim: int = 1000,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.z = nn.Parameter(torch.empty(z_dim))
+        self.fc = nn.Linear(z_dim, in_features * out_features + out_features)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        nn.init.normal_(self.z, std=1.0 / self.out_features,
+                        generator=generator)
+        std = math.sqrt(1.0 / self.fc.in_features) / _TRUNC_STD
+        nn.init.trunc_normal_(self.fc.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        nn.init.zeros_(self.fc.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        theta = self.fc(self.z)
+        w_sz = self.in_features * self.out_features
+        w = theta[:w_sz].reshape(self.in_features, self.out_features)
+        return x @ w + theta[w_sz:]
+
+
+class HyperMLP(nn.Module):
+    """Stack of :class:`WLinear` layers ``wl_0..wl_{n-1}`` with tanh, then
+    ``wl_out`` (the reference MLPPolicy's shape).  flax reads the input
+    width off the first call; here it is ``in_features``."""
+
+    def __init__(self, in_features: int, widths: Sequence[int], out: int,
+                 z_dim: int = 1000,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.widths = tuple(widths)
+        d = in_features
+        for i, w in enumerate(self.widths):
+            setattr(self, f"wl_{i}", WLinear(d, w, z_dim, generator))
+            d = w
+        self.wl_out = WLinear(d, out, z_dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(self.widths)):
+            x = torch.tanh(getattr(self, f"wl_{i}")(x))
+        return self.wl_out(x)

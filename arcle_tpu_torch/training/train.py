@@ -11,8 +11,8 @@ Run:  python -m arcle_tpu_torch.training.train --algo emaml --model mlp \\
           --device cuda --iterations 100
 
 ``--device cuda`` without a CUDA card raises; nothing falls back to the
-CPU.  The bf16 MLP torso (``--dtype bfloat16``) is not ported yet and
-raises.
+CPU.  ``--dtype bfloat16`` runs the MLP torso in bf16 (float32 parameters
+and heads).
 """
 
 from __future__ import annotations
@@ -47,14 +47,6 @@ from .ppo import batch_from_trajectory, make_optimizer, train_step
 from .rollout import Trajectory, rollout
 
 
-def check_ported(cfg: RunConfig) -> None:
-    """Raise for a configuration the port cannot run yet."""
-    if cfg.model == "mlp" and cfg.mlp_dtype != "float32":
-        raise NotImplementedError(
-            f"mlp_dtype={cfg.mlp_dtype}: only the float32 MLP is ported "
-            "(the bf16 torso is queued in ROADMAP.md queue 1 item 7)")
-
-
 def resolve_device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -64,15 +56,17 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_agent(cfg: RunConfig) -> Agent:
-    check_ported(cfg)
     if cfg.model == "gpt":
         return gpt_agent(GPTPolicy(cfg.gpt))
+    dtype = torch.bfloat16 if cfg.mlp_dtype in ("bf16", "bfloat16") \
+        else torch.float32
     return mlp_agent(FCPolicy(hidden=tuple(cfg.mlp_hidden),
-                              n_ops=make_table(cfg.env).n_ops))
+                              n_ops=make_table(cfg.env).n_ops, dtype=dtype))
 
 
-def log_provenance(logger: MetricLogger, cfg: RunConfig, argv=None) -> None:
-    """One JSONL header line per run record: config, git sha, argv."""
+def git_sha() -> str:
+    """The short hash of the checkout this package runs from, or
+    ``"unknown"``."""
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     try:
@@ -82,8 +76,12 @@ def log_provenance(logger: MetricLogger, cfg: RunConfig, argv=None) -> None:
         sha = proc.stdout.strip() if proc.returncode == 0 else ""
     except (OSError, subprocess.SubprocessError):
         sha = ""
-    logger.meta({"config": json.loads(cfg.to_json()),
-                 "git_sha": sha or "unknown",
+    return sha or "unknown"
+
+
+def log_provenance(logger: MetricLogger, cfg: RunConfig, argv=None) -> None:
+    """One JSONL header line per run record: config, git sha, argv."""
+    logger.meta({"config": json.loads(cfg.to_json()), "git_sha": git_sha(),
                  "argv": list(argv) if argv else sys.argv[1:]})
 
 
@@ -375,7 +373,8 @@ def parse_config(argv=None) -> Tuple[RunConfig, argparse.Namespace]:
     ap.add_argument("--dataset", default="synthetic")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
-                    help="MLP torso compute dtype (only float32 is ported)")
+                    help="MLP torso compute dtype (bfloat16: the torso on the "
+                         "tensor cores, float32 parameters and heads)")
     ap.add_argument("--log-file", default="train_log.jsonl")
     ap.add_argument("--ckpt-dir", default="./ckpts")
     ap.add_argument("--device", default="cuda",

@@ -1,8 +1,8 @@
-from .metrics import MetricLogger, Throughput
+from .metrics import MetricLogger, Throughput, profile_trace
 from .checkpoint import Checkpointer
 from .config import RunConfig, EnvConfig, make_table, make_loader
 
 __all__ = [
-    "MetricLogger", "Throughput", "Checkpointer", "RunConfig", "EnvConfig",
+    "MetricLogger", "Throughput", "profile_trace", "Checkpointer", "RunConfig", "EnvConfig",
     "make_table", "make_loader",
 ]

@@ -47,7 +47,7 @@ class RunConfig:
     emaml: EMAMLConfig = dataclasses.field(default_factory=EMAMLConfig)
     gpt: GPTConfig = dataclasses.field(default_factory=GPTConfig)
     mlp_hidden: Tuple[int, ...] = (1024, 1024, 512, 512, 256, 128)
-    mlp_dtype: str = "float32"      # only float32 is ported
+    mlp_dtype: str = "float32"      # torso compute dtype: float32 | bfloat16
 
     def to_json(self) -> str:
         """The tree as JSON; a torch dtype becomes its name

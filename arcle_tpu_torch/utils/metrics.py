@@ -2,15 +2,18 @@
 
 Counterpart of ``arcle_tpu/utils/metrics.py``: a dependency-free metric
 logger (JSONL + stderr) with the reference's wandb metric names
-(train.py:130-150), and env-steps/s with a host readback as the barrier.
+(train.py:130-150), env-steps/s with a host readback as the barrier, and a
+``torch.profiler`` trace context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -77,3 +80,23 @@ class Throughput:
         rate = n_env_steps / max(now - self._last, 1e-9)
         self._last = now
         return rate
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str = "./torch-trace") -> Iterator:
+    """``torch.profiler`` trace context: host activity, and the device's
+    where CUDA is available.  Yields the profiler (``key_averages()`` and
+    ``events()`` are readable after the block); on exit a Chrome trace
+    ``trace_<pid>_<ns>.json`` lies under ``logdir`` (open it in Perfetto or
+    ``chrome://tracing``)."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -13,8 +13,10 @@ Phases, each printing its numbers on a line of its own:
 3. parity  -- the step kernel against its plain PyTorch version (plus the
               flood fix-up) on the same CUDA inputs at B=4096: fuzz steps on
               o2arc_table (with and without crop_at_33), arc_table and
-              raw_table at 30x30, o2arc at 5x5, and raw / arc at 12x20, 5x7
-              and 16x64 (the instantiation with runtime H, W), each after
+              raw_table at 30x30, o2arc at 5x5, the answer-given suite's
+              colour-only table (no Submit op, max_trial=-1) at 5x5 on
+              random pairs and on ARC-like tasks, and raw / arc at 12x20,
+              5x7 and 16x64 (the instantiation with runtime H, W), each after
               the adversarial cases of ``arcle_tpu_torch/testing.py``
               (corridor floods
               seeded at their far end, int8 selections other than 0/1,
@@ -22,7 +24,12 @@ Phases, each printing its numbers on a line of its own:
               every state field, the reward and `terminated` bit-exact;
 4. engine  -- BatchedEnv on CUDA against the same engine on the CPU, same
               start, pool and actions, 256 envs x 40 steps across
-              auto-resets: carry, obs, reward, term, trunc bit-exact;
+              auto-resets: carry, obs, reward, term, trunc bit-exact; then
+              the answer-given env (5x5, colour-only table, pixel reward,
+              terminate on match, pool-less auto-reset with pinned tasks)
+              on CUDA against the CPU, 256 envs x 60 steps with
+              episode_limit=50, half of the envs steered to solve: solved
+              terminations, truncations and auto-resets, all bit-exact;
 5. main    -- the O2ARCv2 main path: 4096 envs, random bbox actions,
               episode_limit=100, auto-reset from an 8-deep pool; 100 steps
               after a warm-up rollout, with the kernel's launch count,
@@ -46,7 +53,9 @@ Phases, each printing its numbers on a line of its own:
               host-inclusive time of a loop of wrapper calls, and the plain
               step; then the 100-step loop through the kernel and through
               the plain step; and the kernel's device time at B=2 and B=64
-              at 30x30, the batches train_gpt's E-MAML and PPO launch it at;
+              at 30x30, the batches train_gpt's E-MAML and PPO launch it at,
+              and at B=1024 5x5 on the colour-only table, where
+              train_answer_given launches it;
 7. gpt     -- the GPT policy at full width (GPTConfig(): 8 layers, 16
               heads, width 128, T=1837) on the card against the same
               weights on the CPU, B=8 from an O2ARCv2 reset as in
@@ -69,13 +78,30 @@ Phases, each printing its numbers on a line of its own:
               64 envs, T=100, 100 minibatches, vf_coeff 0.5; one warm-up
               and one timed iteration: 100 launches per iteration, finite
               aux losses, ms/iter with the rollout / update split, peak
-              memory.
+              memory;
+10. answer-given -- the §4.1 policy at full width (4 layers, 4 heads,
+              width 128, 62 tokens) on the card against the same weights
+              on the CPU, ``color_eq`` and ``sequential``, both passes and
+              ``evaluate_fn``: float32 within 1e-4 of each output's largest
+              magnitude, bf16 within 0.2; one forward of the bf16-torso
+              FCPolicy at full width, card vs CPU, within 0.05 of each
+              output's largest magnitude; then train_answer_given's
+              defaults through ``train`` (random setting, 16384 tasks,
+              1024 envs, T=64, ``color_eq``, categorical head, ``--aux
+              all``, potential shaping, 4 epochs x 8 minibatches, bf16),
+              one warm-up and two timed iterations: exactly 64 kernel
+              launches per iteration, finite losses and aux losses, moved
+              params, finished episodes; ms/iter, the rollout / update
+              split, env-steps/s including the learner, peak memory; and
+              the evaluator on a checkpoint of the run.
 
 It then prints a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no result.  Without CUDA it exits with code 2.
-``--profile`` prints the engine loop's and the PPO rollout's device work
-per step (``torch.profiler`` device events) and exits.
+``--profile`` prints the device work per step of the engine loop, the PPO
+rollout, the GPT forward, the E-MAML rollout and the answer-given rollout
+and minibatch update, beside their wall clock (``torch.profiler`` device
+events) and exits.
 """
 
 from __future__ import annotations
@@ -102,6 +128,9 @@ GPT_GRAD_TOL = 1e-3            # of each gradient tensor's largest entry,
                                # that cancels to ~0 has no scale of its own)
 EMAML_INNER, EMAML_META = 2, 2  # train_gpt's 20 and 5, cut
 GPT_BATCHES = (2, 64)          # train_gpt's E-MAML and PPO env batches
+AG_B, AG_T = 1024, 64          # train_answer_given's envs and rollout
+AG_POLICY_B = 256              # the card-vs-CPU check's batch
+MLP_BF16_TOL = 0.05            # of each output's largest magnitude
 
 
 def log(*a):
@@ -192,6 +221,8 @@ def check_adversarial(st, table, seed: int, what: str) -> float:
 
 
 def phase_parity(dev) -> float:
+    from arcle_tpu_torch.benchmarks import (
+        RandomPairLoader, color_table, small_arc_loader)
     from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
     from arcle_tpu_torch.loaders import SyntheticLoader
     from arcle_tpu_torch.ops import o2arc_table, arc_table, raw_table
@@ -200,9 +231,11 @@ def phase_parity(dev) -> float:
     # a quarter of the envs re-init on Submit
     ros = torch.arange(B, device=dev) % 4 == 0
     worst = 0.0
-    # (name, table, H, W): the four tables at 30x30, the answer-given 5x5
-    # geometry, and shapes that take the kernel's instantiation with
-    # runtime H, W (non-square, odd, wider than 32 columns)
+    # (name, table, H, W[, loader]): the four tables at 30x30, the 5x5
+    # geometry, the answer-given suite's colour-only table (no Submit op,
+    # max_trial=-1) at 5x5 on its two task distributions, and shapes that
+    # take the kernel's instantiation with runtime H, W (non-square, odd,
+    # wider than 32 columns)
     cases = [("o2arc", o2arc_table(max_trial=3), 30, 30),
              ("o2arc_crop33", o2arc_table(max_trial=3, crop_at_33=True),
               30, 30),
@@ -211,12 +244,16 @@ def phase_parity(dev) -> float:
              ("o2arc_5x5", o2arc_table(max_trial=3), 5, 5),
              ("raw_12x20", raw_table(max_trial=3), 12, 20),
              ("arc_5x7", arc_table(max_trial=3), 5, 7),
-             ("arc_16x64", arc_table(max_trial=3), 16, 64)]
-    for ti, (name, table, H, W) in enumerate(cases):
-        loader = SyntheticLoader(16, seed=3, min_size=2,
-                                 max_size=min(H, W, 12))
+             ("arc_16x64", arc_table(max_trial=3), 16, 64),
+             ("color_5x5", color_table(10), 5, 5,
+              RandomPairLoader(256, 5, 5, 10, seed=3)),
+             ("color_5x5_arc", color_table(10), 5, 5,
+              small_arc_loader(64, 5, 10, seed=3))]
+    for ti, (name, table, H, W, *given) in enumerate(cases):
+        loader = given[0] if given else SyntheticLoader(
+            16, seed=3, min_size=2, max_size=min(H, W, 12))
         env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
-                         max_trial=3,
+                         max_trial=table.max_trial,
                          opts=ResetOptions.make(reset_on_submit=ros,
                                                 device=dev))
         gen.manual_seed(100 + ti)
@@ -274,6 +311,82 @@ def phase_engine(dev):
         raise AssertionError(f"engine: only {resets} auto-resets")
     log(f"engine: BatchedEnv cuda vs cpu, {n} envs x {steps} steps, "
         f"{resets} auto-resets, bit-exact")
+    engine_answer_given(dev)
+
+
+def steering_actions(st, helpful, gen):
+    """Bbox actions ``[B, 5]`` for answer-given states on the CPU: the
+    ``helpful`` envs paint (9 steps in 10) their first wrong cell in the
+    answer's colour, so their episodes end solved; every other action is a
+    random box and colour."""
+    n, H, W = st.grid.shape
+    rnd = lambda hi, *shape: torch.randint(0, hi, shape, generator=gen)
+    wrong = (st.grid != st.answer).reshape(n, -1)
+    cell = wrong.to(torch.int8).argmax(-1)
+    r, c = cell // W, cell % W
+    colour = st.answer.reshape(n, -1).gather(1, cell[:, None])[:, 0].long()
+    fix = torch.stack([r, c, r, c, colour], 1)
+    box = torch.cat([rnd(H, n, 1), rnd(W, n, 1), rnd(H, n, 1), rnd(W, n, 1),
+                     rnd(10, n, 1)], 1)
+    steer = helpful & wrong.any(-1) & (torch.rand(n, generator=gen) < 0.9)
+    return torch.where(steer[:, None], fix, box).to(torch.int32)
+
+
+def engine_answer_given(dev):
+    """The answer-given env on CUDA (kernel) against the same env on the
+    CPU (plain): pinned tasks, so the pool-less auto-reset draws the same
+    fresh episodes; the same actions."""
+    from arcle_tpu_torch.benchmarks import answer_given_env
+    from arcle_tpu_torch.core import FIELDS
+    from arcle_tpu_torch.envs import ResetOptions
+    from arcle_tpu_torch.envs.core import BatchedState
+    from arcle_tpu_torch.training.rollout import decode_bbox_actions
+
+    n, steps, limit = 256, 60, 50
+    env_c = answer_given_env(n_tasks=1024, seed=5, episode_limit=limit,
+                             device="cpu")
+    pin = ResetOptions.make(prob_index=torch.arange(n) * 4, subprob_index=0,
+                            device="cpu")
+    env_c = dataclasses.replace(env_c, opts=pin)
+    env_g = dataclasses.replace(env_c, bank=env_c.bank.to(dev),
+                                opts=pin.to(dev))
+    bs_c = env_c.reset(torch.Generator().manual_seed(7), n)
+    bs_g = BatchedState(
+        env=type(bs_c.env)(**{f: getattr(bs_c.env, f).to(dev)
+                              for f in FIELDS}),
+        generator=torch.Generator(device=dev))
+    gen = torch.Generator().manual_seed(8)
+    helpful = torch.arange(n) % 2 == 0
+    solved = truncated = 0
+    for t in range(steps):
+        acts = steering_actions(bs_c.env, helpful, gen)
+        bs_c, obs_c, r_c, te_c, tr_c = env_c.step(
+            bs_c, decode_bbox_actions(acts, 5, 5))
+        bs_g, obs_g, r_g, te_g, tr_g = env_g.step(
+            bs_g, decode_bbox_actions(acts.to(dev), 5, 5))
+        checks = [("reward", r_g, r_c), ("term", te_g, te_c),
+                  ("trunc", tr_g, tr_c)]
+        checks += [(f"obs.{f}", getattr(obs_g, f), getattr(obs_c, f))
+                   for f in FIELDS]
+        checks += [(f"carry.{f}", getattr(bs_g.env, f), getattr(bs_c.env, f))
+                   for f in FIELDS]
+        for name, g, c in checks:
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"engine answer-given: step {t} {name} "
+                                     "differs")
+        if not torch.equal(r_c == 0, te_c) or float(r_c.min()) < -1.0 or \
+                float(r_c.max()) > 0.0:
+            raise AssertionError(f"engine answer-given: step {t}: the pixel "
+                                 "reward is not in [-1, 0] with 0 at a solve")
+        solved += int(te_c.sum())
+        truncated += int((tr_c & ~te_c).sum())
+    if solved < n // 2 or truncated < n // 4:
+        raise AssertionError(f"engine answer-given: {solved} solved and "
+                             f"{truncated} truncated episodes")
+    log(f"engine answer-given: answer_given_env cuda vs cpu, {n} envs x "
+        f"{steps} steps, episode_limit={limit}, colour-only 5x5 table, "
+        f"{solved} solved terminations, {truncated} truncations, every "
+        "one auto-reset, pixel reward, term, trunc, obs, carry bit-exact")
 
 
 def main_env(dev):
@@ -718,6 +831,224 @@ def phase_gpt_ppo(dev, card: str) -> int:
     return launches
 
 
+def _scaled_close(what: str, got: torch.Tensor, want: torch.Tensor,
+                  scale: float, tol: float) -> float:
+    """``got`` (from the card) against ``want`` within ``tol * scale``;
+    returns the error as a share of ``scale``."""
+    g = got.float().cpu()
+    if tuple(g.shape) != tuple(want.shape) or \
+            not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: shape {tuple(g.shape)} or not finite")
+    err = max_abs_diff(g, want.float())
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: card vs cpu {err:.3e} > {tol} x "
+                             f"{scale:.3e}")
+    return err / scale
+
+
+def answer_given_policy_check(dev, card: str) -> None:
+    """The §4.1 policy at full width on the card against the CPU, same
+    weights: both passes of the model and the agent's ``evaluate_fn``, for
+    the colour-equivariant and the sequential architecture, float32 and
+    bf16."""
+    from arcle_tpu_torch.benchmarks import (
+        answer_given_agent, answer_given_env, answer_obs, make_policy)
+    from arcle_tpu_torch.benchmarks.answer_given import _unpack
+    from arcle_tpu_torch.models import GPTPolicy
+
+    n = AG_POLICY_B
+    env = answer_given_env(n_tasks=1024, seed=1, device="cpu")
+    obs = answer_obs(env.reset(torch.Generator().manual_seed(0), n).env)
+    gen = torch.Generator().manual_seed(1)
+    acts = torch.cat([torch.randint(0, 5, (n, 4), generator=gen),
+                      torch.randint(0, 10, (n, 1), generator=gen)],
+                     1).to(torch.int32)
+    grid, gd, ans, ad = _unpack(obs, 5, 5)
+    z = torch.zeros(n, dtype=torch.int8)
+    args_c = [grid, gd, ans, ad, z, z]
+    passes = {"plain": {}, "conditioned": dict(
+        operation=acts[:, 4], bbox=acts[:, :4].float() / 5)}
+    worst, ms = {}, {}
+    for arch in ("color_eq", "sequential"):
+        ref = {}
+        for dname, dtype in (("float32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            base = make_policy(color_equivariant=(arch == "color_eq"))
+            pol_c = GPTPolicy(dataclasses.replace(base.cfg, dtype=dtype),
+                              generator=torch.Generator().manual_seed(0))
+            pol_g = copy.deepcopy(pol_c).to(dev)
+            tol = GPT_F32_TOL if dname == "float32" else GPT_BF16_TOL
+            outs = {}
+            with torch.no_grad():
+                for pname, kw in passes.items():
+                    kw_g = {k: v.to(dev) for k, v in kw.items()}
+                    args_g = [a.to(dev) for a in args_c]
+                    outs[pname] = (pol_c(*args_c, **kw),
+                                   pol_g(*args_g, **kw_g))
+                    ms[f"{arch} {dname} {pname}"] = min(_event_ms(
+                        lambda: pol_g(*args_g, **kw_g), 10)
+                        for _ in range(2))
+                agent = answer_given_agent(
+                    pol_c, sequential=(arch == "sequential"))
+                names = ("log_prob", "value", "entropy")
+                outs["evaluate_fn"] = (
+                    dict(zip(names, agent.evaluate_fn(pol_c, obs, acts))),
+                    dict(zip(names, agent.evaluate_fn(
+                        pol_g, obs.to(dev), acts.to(dev)))))
+            if dname == "float32":
+                ref = {p: o[0] for p, o in outs.items()}
+            for pname, (out_c, out_g) in outs.items():
+                for k, c in out_c.items():
+                    scale = float(ref[pname][k].abs().max())
+                    share = _scaled_close(
+                        f"answer-given: {arch} {dname} {pname} {k}",
+                        out_g[k], c, scale, tol)
+                    key = f"{arch} {dname}"
+                    worst[key] = max(worst.get(key, 0.0), share)
+    c = base.cfg
+    log(f"answer-given policy: {c.n_layer}L/{c.n_head}H/{c.n_embd}E "
+        f"T={c.num_tokens}, B={n}, card vs cpu, both passes and "
+        "evaluate_fn: " + ", ".join(f"{k} worst {v:.3e}"
+                                    for k, v in worst.items())
+        + f" of each output's scale (tol float32 {GPT_F32_TOL}, bf16 "
+        f"{GPT_BF16_TOL}); TF32 off")
+    log(f"timing answer-given forward B={n}: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f" (CUDA events, 10 calls; {card})")
+
+
+def mlp_bf16_check(dev, card: str) -> None:
+    """One forward of the full-width FCPolicy with the bf16 torso on the
+    card against the CPU, same weights, on observations of the train
+    configuration's envs; the float32 torso beside it."""
+    from arcle_tpu_torch.models import FCPolicy
+    from arcle_tpu_torch.training.train import setup_ppo
+
+    run = setup_ppo(train_config("cuda", 256, 1))
+    obs_g = run.agent.obs_fn(run.bs.env)
+    obs_c = obs_g.cpu()
+    worst, ms = {}, {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bf16", torch.bfloat16)):
+        pol_c = FCPolicy(hidden=run.params.hidden, dtype=dtype,
+                         generator=torch.Generator().manual_seed(0))
+        pol_g = copy.deepcopy(pol_c).to(dev)
+        with torch.no_grad():
+            (l_c, v_c), (l_g, v_g) = pol_c(obs_c), pol_g(obs_g)
+            ms[dname] = min(_event_ms(lambda: pol_g(obs_g), 10)
+                            for _ in range(2))
+        tol = 1e-4 if dname == "float32" else MLP_BF16_TOL
+        for k, (g, c) in enumerate(zip(l_g + (v_g,), l_c + (v_c,))):
+            share = _scaled_close(f"mlp {dname}: output {k}", g, c,
+                                  float(c.abs().max()), tol)
+            worst[dname] = max(worst.get(dname, 0.0), share)
+    log(f"mlp bf16: FCPolicy hidden={run.params.hidden}, B={obs_c.shape[0]}, "
+        f"card vs cpu, five logit heads and the value: bf16 torso worst "
+        f"{worst['bf16']:.3e} of each output's largest magnitude (tol "
+        f"{MLP_BF16_TOL}), float32 torso worst {worst['float32']:.3e} (tol "
+        f"1e-4); forward float32 {ms['float32']:.3f} ms, bf16 "
+        f"{ms['bf16']:.3f} ms (CUDA events, 10 calls; {card})")
+
+
+def phase_answer_given(dev, card: str) -> dict:
+    """train_answer_given's defaults through ``train``: one warm-up and two
+    timed iterations; then the evaluator on the run's checkpoint."""
+    import tempfile
+    from arcle_tpu_torch.benchmarks import eval_answer_given
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.training import train_answer_given as tag_train
+    from arcle_tpu_torch.utils import MetricLogger
+
+    answer_given_policy_check(dev, card)
+    mlp_bf16_check(dev, card)
+
+    aux = ("aux_loss", "aux_rtm1_loss", "aux_r_loss", "aux_grid_loss")
+    rows = []
+
+    def on_iteration(i, run, traj, stats):
+        launches = step_kernel.LAUNCHES - sum(r["launches"] for r in rows)
+        if launches != AG_T:
+            raise AssertionError(f"answer-given: iteration {i} launched the "
+                                 f"step kernel {launches} times, not {AG_T}")
+        vals = {k: float(stats[k]) for k in aux + (
+            "total_loss", "policy_loss", "vf_loss", "entropy",
+            "success_rate", "episode_reward_mean", "episode_len_mean")}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"answer-given: iteration {i}: {vals}")
+        episodes = int(stats["episodes"])
+        if episodes < AG_B:
+            raise AssertionError(f"answer-given: iteration {i}: {episodes} "
+                                 "episodes finished")
+        if tuple(traj.obs.shape) != (AG_T, AG_B, 54) or \
+                float(traj.rewards.max()) > 0 or \
+                float(traj.rewards.min()) < -1:
+            raise AssertionError(f"answer-given: iteration {i}: obs "
+                                 f"{tuple(traj.obs.shape)} or a reward "
+                                 "outside [-1, 0]")
+        rows.append(dict(vals, launches=launches, episodes=episodes,
+                         rollout_ms=stats["rollout_ms"],
+                         update_ms=stats["update_ms"]))
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        args = tag_train.parse_args(["--device", "cuda", "--iterations",
+                                     "3",
+                                     "--ckpt-dir", ckpt_dir])
+        if (args.n_envs, args.rollout, args.n_tasks, args.epochs,
+                args.minibatches) != (AG_B, AG_T, 16384, 4, 8):
+            raise AssertionError("answer-given: the trainer's defaults moved")
+        init = tag_train.build(args)[1].init_fn(
+            torch.Generator().manual_seed(args.seed))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        pol = tag_train.train(args, MetricLogger(None),
+                              on_iteration=on_iteration)
+        torch.cuda.synchronize()
+        launches = step_kernel.LAUNCHES
+        total_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        it, scores = eval_answer_given.evaluate(ckpt_dir, device="cuda")
+    if len(rows) != args.iterations:
+        raise AssertionError(f"answer-given: {len(rows)} iterations ran")
+    if all(torch.equal(a.cpu(), b) for a, b in
+           zip(pol.state_dict().values(), init.state_dict().values())):
+        raise AssertionError("answer-given: the params did not change")
+    if it != 0 or set(scores) != {"deterministic", "stochastic"} or not all(
+            0.0 <= m["success_rate"] <= 1.0 for m in scores.values()):
+        raise AssertionError(f"answer-given: evaluator gave {it}, {scores}")
+    for i, r in enumerate(rows):
+        ms = r["rollout_ms"] + r["update_ms"]
+        log(f"answer-given iter {i}{' (warm-up)' if i == 0 else ''}: "
+            f"{ms:.1f} ms/iter = rollout {r['rollout_ms']:.1f} + update "
+            f"{r['update_ms']:.1f} ms (CUDA events), "
+            f"{AG_B * AG_T / ms * 1e3:,.0f} env-steps/s incl. learner; loss "
+            f"{r['total_loss']:.5f}, entropy {r['entropy']:.4f}, aux "
+            + ", ".join(f"{k} {r[k]:.5f}" for k in aux)
+            + f"; {r['episodes']} episodes, success "
+            f"{r['success_rate']:.4f}, episode reward "
+            f"{r['episode_reward_mean']:.3f} ({card})")
+    timed = rows[1:]
+    ms = sum(r["rollout_ms"] + r["update_ms"] for r in timed) / len(timed)
+    roll = sum(r["rollout_ms"] for r in timed) / len(timed)
+    c = pol.cfg
+    log(f"answer-given: train_answer_given defaults (random setting, "
+        f"{args.n_tasks} tasks, {AG_B} envs x T={AG_T}, {args.arch}, "
+        f"{args.bbox_dist} head, --aux {args.aux}, potential shaping, "
+        f"{args.epochs} epochs x {args.minibatches} minibatches of "
+        f"{AG_B * AG_T // args.minibatches} rows), GPT {c.n_layer}L/"
+        f"{c.n_head}H/{c.n_embd}E {c.dtype} T={c.num_tokens}, {len(timed)} "
+        f"timed iterations: {ms:.1f} ms/iter, "
+        f"{AG_B * AG_T / ms * 1e3:,.0f} env-steps/s incl. learner, rollout "
+        f"{roll / ms:.1%} / update {1 - roll / ms:.1%}, peak memory "
+        f"{peak_gb:.2f} GiB, {launches} kernel launches in {len(rows)} "
+        f"iterations ({AG_T} each), {total_s:.1f} s with set-up (host "
+        f"clock); evaluator on checkpoint {it}: deterministic success "
+        f"{scores['deterministic']['success_rate']:.3f}, stochastic "
+        f"{scores['stochastic']['success_rate']:.3f} ({card})")
+    return dict(launches=launches, ms=ms, rollout_ms=roll, peak_gb=peak_gb)
+
+
 def _event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -837,21 +1168,29 @@ def time_groups(st, acts, table, card: str) -> None:
         f"{', '.join(parts)} ({card})")
 
 
-def time_kernel(dev, card: str, H: int, W: int, batch: int = B) -> dict:
+def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
+                answer_given: bool = False) -> dict:
     """Device time, host time, bound and plain time of the kernel at
-    ``batch`` envs on O2ARCv2 with random bbox actions, on an ``H x W``
-    bank."""
+    ``batch`` envs with random bbox actions on an ``H x W`` bank: O2ARCv2
+    on synthetic tasks, or (``answer_given``) the colour-only table on the
+    answer-given suite's random pairs."""
+    from arcle_tpu_torch.benchmarks import answer_given_env
     from arcle_tpu_torch.envs import BatchedEnv, random_bbox_actions
     from arcle_tpu_torch.loaders import SyntheticLoader
     from arcle_tpu_torch.ops import finish_flood, o2arc_table
     from arcle_tpu_torch.ops.step_kernel import (
         cuda_step_deferred, plain_step_deferred)
 
-    table = o2arc_table(max_trial=-1)
-    loader = SyntheticLoader(16, seed=3, min_size=2, max_size=min(H, W, 12))
-    env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
-                     max_trial=-1, episode_limit=100, auto_reset=True,
-                     reset_pool=8)
+    if answer_given:
+        env = answer_given_env(n_tasks=4096, h=H, w=W, seed=3, device=dev)
+        table, family = env.table, "colour-only table"
+    else:
+        table, family = o2arc_table(max_trial=-1), "O2ARCv2"
+        loader = SyntheticLoader(16, seed=3, min_size=2,
+                                 max_size=min(H, W, 12))
+        env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
+                         max_trial=-1, episode_limit=100, auto_reset=True,
+                         reset_pool=8)
     st = env.reset(torch.Generator(device=dev).manual_seed(2), batch).env
     gen = torch.Generator(device=dev).manual_seed(3)
     acts = [random_bbox_actions(gen, batch, table.n_ops, H, W, dev)
@@ -882,13 +1221,13 @@ def time_kernel(dev, card: str, H: int, W: int, batch: int = B) -> dict:
         _event_ms(f, 5)                                      # warm-up
     loop_ms = [_event_ms(kernel_call, 50) for _ in range(2)]
     plain_ms = [_event_ms(plain_call, 10) for _ in range(2)]
-    if (H, W) == (30, 30) and batch == B:
+    if (H, W) == (30, 30) and batch == B and not answer_given:
         time_groups(st, acts, table, card)
     out = dict(device_ms=min(dev_ms), host_us=min(h_us),
                ms=min(loop_ms), plain_ms=min(plain_ms), bound_ms=bound_ms,
                bytes_per_launch=nbytes,
                roofline_share=bound_ms / min(dev_ms))
-    log(f"timing kernel B={batch} {H}x{W} O2ARCv2 random bbox: device "
+    log(f"timing kernel B={batch} {H}x{W} {family} random bbox: device "
         f"{dev_ms[0] * 1e3:.2f} / {dev_ms[1] * 1e3:.2f} us per launch "
         f"(CUDA graph of 20 dependent launches, CUDA events); bound "
         f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.3f} MB per launch at "
@@ -912,6 +1251,9 @@ def phase_timing(dev, card: str) -> dict:
     for batch in GPT_BATCHES:
         by_geometry[f"30x30_B{batch}"] = time_kernel(dev, card, 30, 30,
                                                      batch)
+    # where train_answer_given launches it: 1024 envs, 5x5, colour ops only
+    by_geometry[f"5x5_color_B{AG_B}"] = time_kernel(dev, card, 5, 5, AG_B,
+                                                    answer_given=True)
 
     env = main_env(dev)
     table = env.table
@@ -994,6 +1336,66 @@ def phase_profile(dev, card: str):
         f"device operations per step, step_kernel {k_us:.1f} us "
         f"(torch.profiler device events; {card})")
     phase_profile_gpt(dev, card)
+    phase_profile_answer_given(dev, card)
+
+
+def top_kernels(fn, k: int = 6) -> str:
+    """The ``k`` device kernels with the most time in one run of ``fn``,
+    each with its share of the device time (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:k]
+    return ", ".join(f"{n[:48]} {t / total:.1%}" for n, t in top)
+
+
+def phase_profile_answer_given(dev, card: str):
+    """Device work against wall clock for train_answer_given's defaults:
+    per rollout step, and per minibatch update (8192 rows, the evaluate
+    and the aux pass)."""
+    from arcle_tpu_torch.training import rollout, train_step
+    from arcle_tpu_torch.training import train_answer_given as tag_train
+
+    run = tag_train.setup(tag_train.parse_args(["--device", "cuda"]))
+    steps = 10
+
+    def roll():
+        rollout(run.env, run.bs, run.params, run.generator, steps, run.agent)
+    roll()                                                  # warm-up
+    wall = _event_ms(roll, 1) / steps
+    us, ops, k_us = device_work(roll, steps)
+    log(f"profile answer-given rollout ({AG_B} envs): {us:.1f} us of device "
+        f"work in {ops:.1f} device operations per step, step_kernel "
+        f"{k_us:.1f} us; {wall:.3f} ms per step (CUDA events), the card "
+        f"idle {1 - us / 1e3 / wall:.1%} of it (torch.profiler device "
+        f"events; {card})")
+
+    _, traj, last_v = rollout(run.env, run.bs, run.params, run.generator,
+                              AG_T, run.agent)
+    batch = tag_train.learner_batch(traj, last_v, run.pcfg, 5, True)
+    one_epoch = dataclasses.replace(run.pcfg, n_epochs=1)
+    n_mb = one_epoch.n_minibatches
+
+    def update():
+        train_step(run.params, run.opt, batch, run.generator, run.agent,
+                   one_epoch, 0.1)
+    update()                                                # warm-up
+    wall = _event_ms(update, 1) / n_mb
+    us, ops, _ = device_work(update, n_mb)
+    log(f"profile answer-given update: {us / 1e3:.2f} ms of device work in "
+        f"{ops:.0f} device operations per minibatch of "
+        f"{batch.obs.shape[0] // n_mb} rows; {wall:.2f} ms per minibatch "
+        f"(CUDA events), the card idle {max(0.0, 1 - us / 1e3 / wall):.1%} "
+        f"of it; top kernels: {top_kernels(update)} (torch.profiler device "
+        f"events; {card})")
 
 
 def phase_profile_gpt(dev, card: str):
@@ -1064,6 +1466,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
@@ -1091,11 +1494,13 @@ def main() -> int:
     phase_learner(dev)
     launches["train"] = phase_train(dev, card)
     timing = phase_timing(dev, card)
-    t30 = timing["30x30"]
+    t30, tag = timing["30x30"], timing[f"5x5_color_B{AG_B}"]
     gpt_ms = phase_gpt(dev, card)
     emaml = phase_emaml(dev, card)
     launches["emaml"] = emaml["launches"]
     launches["gpt_ppo"] = phase_gpt_ppo(dev, card)
+    answer_given = phase_answer_given(dev, card)
+    launches["answer_given"] = answer_given["launches"]
 
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
@@ -1103,15 +1508,30 @@ def main() -> int:
         "replaces": "arcle_tpu/ops/pallas_step.py:248",
         "launches": sum(launches.values()), "launches_by_path": launches,
         "launches_per_meta_iteration": emaml["per_iteration"],
+        "launches_per_answer_given_iteration": AG_T,
         "max_abs_err": worst,
         "ms": t30["ms"], "plain_ms": t30["plain_ms"],
         "device_ms": t30["device_ms"], "host_us": t30["host_us"],
         "bound_ms": t30["bound_ms"], "bound_by": "bytes",
         "bytes_per_launch": t30["bytes_per_launch"],
-        "library_ms": None, "by_geometry": timing}],
+        "library_ms": None, "by_geometry": timing}, {
+        # the same kernel at the shape the answer-given path launches it
+        "name": f"step_kernel@5x5_color_B{AG_B}", "route": "cuda",
+        "source": "arcle_tpu_torch/csrc/step_kernel.cu",
+        "replaces": "arcle_tpu/ops/pallas_step.py:248",
+        "launches": launches["answer_given"], "max_abs_err": worst,
+        "ms": tag["ms"], "plain_ms": tag["plain_ms"],
+        "device_ms": tag["device_ms"], "host_us": tag["host_us"],
+        "bound_ms": tag["bound_ms"], "bound_by": "bytes",
+        "bytes_per_launch": tag["bytes_per_launch"],
+        "library_ms": None}],
         "gpt_forward_ms": gpt_ms,
         "emaml_s_per_meta_iteration": emaml["s"],
-        "emaml_peak_gb": emaml["peak_gb"]}
+        "emaml_peak_gb": emaml["peak_gb"],
+        "answer_given_ms_per_iteration": answer_given["ms"],
+        "answer_given_rollout_ms": answer_given["rollout_ms"],
+        "answer_given_peak_gb": answer_given["peak_gb"]}
+    log(f"total: {time.perf_counter() - t_start:.1f} s (host clock)")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

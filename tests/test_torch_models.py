@@ -17,13 +17,15 @@ import torch
 from arcle_tpu.core.state import EnvState as JEnvState
 from arcle_tpu.envs.meta import augment_task as j_augment_task
 from arcle_tpu.models.mlp import FCPolicy as JFCPolicy
+from arcle_tpu.models.mlp import HyperMLP as JHyperMLP
 from arcle_tpu.models import mlp as jmlp
 from arcle_tpu import wrappers as jwrap
 
 from arcle_tpu_torch.core import FIELDS, state_from_numpy
 from arcle_tpu_torch.envs.meta import augment_task, draw_augmentation
 from arcle_tpu_torch.models import (
-    FCPolicy, fcpolicy_state_dict_from_flax, multi_categorical_sample,
+    FCPolicy, HyperMLP, fcpolicy_state_dict_from_flax,
+    hypermlp_state_dict_from_flax, multi_categorical_sample,
     multi_categorical_log_prob, multi_categorical_entropy,
 )
 from arcle_tpu_torch import wrappers
@@ -194,9 +196,72 @@ def test_fcpolicy_init_matches_flax_distribution():
         assert torch.equal(a, b)
 
 
-def test_fcpolicy_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FCPolicy(hidden=(8,), dtype=torch.bfloat16)
+@pytest.mark.parametrize("hidden", [(32, 32), (256, 128, 64)],
+                         ids=["narrow", "wide"])
+def test_fcpolicy_bf16_matches(hidden):
+    """The bf16 torso (float32 parameters and ``pi`` / ``vf`` heads, as
+    flax's ``Dense(dtype=bfloat16)``) with the flax weights carried across,
+    against JAX's bf16 policy: every output within 1e-3 of its largest
+    magnitude (measured ~2e-4: both round each layer's float32
+    accumulation to bf16 once).  Against the float32 path: within 0.03 of
+    the float32 output's largest magnitude (measured 0.01: bf16 keeps 8
+    bits).  The outputs are float32."""
+    jbf = JFCPolicy(hidden=hidden, n_ops=35, dtype=jnp.bfloat16)
+    j32 = JFCPolicy(hidden=hidden, n_ops=35)
+    params = jbf.init(jax.random.key(0), jnp.zeros((1, 2710), jnp.int8))
+    tbf = FCPolicy(hidden=hidden, n_ops=35, dtype=torch.bfloat16)
+    tbf.load_state_dict(fcpolicy_state_dict_from_flax(
+        jax.tree.map(np.asarray, params)))
+    assert all(p.dtype == torch.float32 for p in tbf.parameters())
+    obs = random_obs(np.random.default_rng(2), 64)
+    jl, jv = jbf.apply(params, jnp.asarray(obs))
+    fl, fv = j32.apply(params, jnp.asarray(obs))
+    with torch.no_grad():
+        tl, tv = tbf(torch.from_numpy(obs))
+    assert tv.dtype == torch.float32 and tl[0].dtype == torch.float32
+    differs = False
+    for t, j, f in zip(tl + (tv,), jl + (jv,), fl + (fv,)):
+        t, j, f = t.numpy(), np.asarray(j), np.asarray(f)
+        scale = np.abs(f).max()
+        assert np.abs(t - j).max() <= 1e-3 * scale
+        assert np.abs(t - f).max() <= 0.03 * scale
+        differs |= bool(np.abs(t - f).max() > 1e-4 * scale)
+    assert differs                      # the torso did run in bf16
+
+
+def test_hypermlp_matches():
+    """``HyperMLP`` (a stack of ``WLinear``) with the flax weights carried
+    across by ``hypermlp_state_dict_from_flax``: rtol 1e-5, atol 1e-6; the
+    generated weight is ``theta[:in * out]`` as ``[in, out]``; and the
+    port's own draw has flax's statistics (``z`` ~ N(0, 1/out), ``fc``
+    lecun-normal, zero bias; std within 10%)."""
+    jm = JHyperMLP(widths=(32, 16), out=4)
+    x = np.random.default_rng(0).standard_normal((3, 8)).astype(np.float32)
+    params = jm.init(jax.random.key(0), jnp.asarray(x))
+    y = jm.apply(params, jnp.asarray(x))
+    tm = HyperMLP(8, (32, 16), 4)
+    sd = hypermlp_state_dict_from_flax(jax.tree.map(np.asarray, params))
+    assert set(sd) == set(tm.state_dict())
+    tm.load_state_dict(sd)
+    with torch.no_grad():
+        ty = tm(torch.from_numpy(x))
+        theta = tm.wl_0.fc(tm.wl_0.z)
+        h = torch.tanh(torch.from_numpy(x) @ theta[:256].reshape(8, 32)
+                       + theta[256:])
+    assert ty.shape == (3, 4)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(y), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(torch.tanh(tm.wl_0(torch.from_numpy(x)))
+                               .detach().numpy(), h.numpy(), rtol=1e-6)
+    own = HyperMLP(8, (32, 16), 4,
+                   generator=torch.Generator().manual_seed(0)).state_dict()
+    for k, v in sd.items():
+        assert own[k].shape == v.shape, k
+        if k.endswith("bias"):
+            assert float(own[k].abs().max()) == 0.0
+        else:
+            assert abs(float(own[k].std() / v.std()) - 1) < 0.1, k
+    assert abs(float(own["wl_out.z"].std()) * 4 - 1) < 0.1
 
 
 def random_logits(rng, n):

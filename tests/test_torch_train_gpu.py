@@ -1,4 +1,4 @@
-"""The PPO trainer on the card against the trainer on the CPU.
+"""The trainers on the card against the trainers on the CPU.
 
 Marked ``gpu``: it skips without a CUDA card and runs on one with
 ``python -m pytest tests/test_torch_train_gpu.py -m gpu``.  This file
@@ -171,6 +171,80 @@ def test_gpt_emaml_cuda_matches_cpu(cuda_device, monkeypatch):
             # shifting every op logit changes no softmax, so this bias's
             # gradient is 0 up to rounding, which AdamW's normalisation
             # turns into steps of up to meta_lr on either device
+            continue
+        torch.testing.assert_close(v.cpu(), cpu_sd[k], rtol=0, atol=1e-5,
+                                   msg=k)
+
+
+def _answer_given_iterations(device, start_env, monkeypatch, n_iter=2):
+    """``n_iter`` iterations of the answer-given trainer (potential shaping,
+    all three aux losses, 2 epochs x 2 minibatches) with a float32 policy
+    on ``device``, from weights drawn on the CPU and the same start state.
+    Tasks are pinned per env, and the sampling uniforms and the minibatch
+    shuffles come from CPU generators seeded alike, so both devices take
+    the same actions."""
+    from arcle_tpu_torch.benchmarks import answer_given_agent
+    from arcle_tpu_torch.envs import ResetOptions
+    from arcle_tpu_torch.models import GPTPolicy
+    tag_train, tppo = (importlib.import_module(
+        f"arcle_tpu_torch.training.{m}")
+        for m in ("train_answer_given", "ppo"))
+    tbd = importlib.import_module("arcle_tpu_torch.models.bbox_dist")
+    noise_gen, perm_gen = (torch.Generator().manual_seed(s) for s in (2, 3))
+    monkeypatch.setattr(tbd, "gumbel_uniforms", lambda shape, gen, dev: (
+        torch.rand(shape, generator=noise_gen).clamp_(min=1e-12).to(dev)))
+    monkeypatch.setattr(tppo, "permutations", lambda gen, e, n, dev: [
+        torch.randperm(n, generator=perm_gen).to(dev) for _ in range(e)])
+    args = tag_train.parse_args([
+        "--device", str(device), "--n-tasks", "16", "--n-envs", "16",
+        "--rollout", "12", "--episode-limit", "8", "--colors", "2",
+        "--n-layer", "1", "--n-head", "2", "--n-embd", "32", "--epochs",
+        "2", "--minibatches", "2"])
+    run = tag_train.setup(args)
+    dev = run.env.device
+    run.env = dataclasses.replace(run.env, opts=ResetOptions.make(
+        prob_index=torch.arange(16), subprob_index=0, device=dev))
+    pol = GPTPolicy(dataclasses.replace(run.params.cfg, dtype=torch.float32),
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    run.agent, run.params = answer_given_agent(pol), pol
+    run.opt = tppo.make_optimizer(pol, run.pcfg)
+    run.bs = BatchedState(env=_to(start_env, dev), generator=run.generator)
+    launches = step_kernel.LAUNCHES
+    stats = [tag_train.iteration(run, 0.05)[1] for _ in range(n_iter)]
+    return stats, pol, step_kernel.LAUNCHES - launches
+
+
+@pytest.mark.gpu
+def test_answer_given_cuda_matches_cpu(cuda_device, monkeypatch):
+    """Two answer-given iterations on the card (every env step through the
+    step kernel's 5x5 instantiation on the colour-only table) and on the
+    CPU: 12 launches per iteration, every statistic rtol 1e-4 / atol 1e-6,
+    the params after the updates atol 1e-5 (all but the op head's last
+    bias, whose gradient is 0 up to rounding)."""
+    from arcle_tpu_torch.benchmarks import answer_given_env
+    from arcle_tpu_torch.envs import ResetOptions
+    env = answer_given_env(n_tasks=16, colors=2, seed=0, device="cpu")
+    env = dataclasses.replace(env, opts=ResetOptions.make(
+        prob_index=torch.arange(16), subprob_index=0, device="cpu"))
+    start = env.reset(torch.Generator().manual_seed(0), 16).env
+    cpu, cpu_pol, cpu_launches = _answer_given_iterations("cpu", start,
+                                                          monkeypatch)
+    gpu, gpu_pol, gpu_launches = _answer_given_iterations(cuda_device, start,
+                                                          monkeypatch)
+    torch.cuda.synchronize()
+    assert cpu_launches == 0 and gpu_launches == 2 * 12
+    for i, (c, g) in enumerate(zip(cpu, gpu)):
+        assert set(c) == set(g)
+        for k in c:
+            torch.testing.assert_close(
+                g[k].cpu().float(), c[k].float(), rtol=1e-4, atol=1e-6,
+                msg=f"iteration {i} {k}")
+        assert torch.isfinite(g["total_loss"]) and \
+            torch.isfinite(g["aux_loss"])
+        assert int(g["episodes"]) >= 16
+    cpu_sd = cpu_pol.state_dict()
+    for k, v in gpu_pol.state_dict().items():
+        if k == "head_operation.Dense_2.bias":
             continue
         torch.testing.assert_close(v.cpu(), cpu_sd[k], rtol=0, atol=1e-5,
                                    msg=k)

@@ -430,10 +430,32 @@ def test_checkpointer_keeps_five(tmp_path):
     assert float(ck.restore(4)["x"][0]) == 4.0
 
 
-@pytest.mark.parametrize("flag", [("--dtype", "bfloat16")], ids=["bf16"])
-def test_unported_options_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ttrain.main(smoke_args(tmp_path, *flag))
+def test_bf16_mlp_smoke(tmp_path):
+    """``--dtype bfloat16`` runs the MLP torso in bf16 through the trainer:
+    the policy carries the dtype, keeps float32 parameters, and the loss is
+    finite."""
+    pol = ttrain.main(smoke_args(tmp_path, "--iterations", "1", "--dtype",
+                                 "bfloat16"))
+    assert pol.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in pol.parameters())
+    its = [json.loads(l) for l in open(tmp_path / "log.jsonl")]
+    assert np.isfinite([l for l in its if "iteration" in l][0]["total_loss"])
+    cfg, _ = ttrain.parse_config(smoke_args(tmp_path))
+    assert ttrain.build_agent(cfg).init_fn().dtype == torch.float32
+
+
+def test_profile_trace_writes_a_trace(tmp_path):
+    """``profile_trace`` yields the profiler and leaves a Chrome trace with
+    the traced ops under ``logdir``."""
+    from arcle_tpu_torch.utils import profile_trace
+    with profile_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    files = list((tmp_path / "trace").glob("trace_*.json"))
+    assert len(files) == 1
+    names = {e["name"] for e in json.load(open(files[0]))["traceEvents"]
+             if "name" in e}
+    assert any("mm" in n for n in names)
+    assert any("mm" in e.key for e in prof.key_averages())
 
 
 def test_cuda_without_card_raises(tmp_path):
@@ -446,9 +468,9 @@ def test_cuda_without_card_raises(tmp_path):
 
 
 def test_train_imports_no_jax():
-    """Importing the training entry points, E-MAML and the GPT in a fresh
-    interpreter leaves jax, flax, optax and arcle_tpu out of
-    sys.modules."""
+    """Importing the training entry points, E-MAML, the GPT and the
+    answer-given suite in a fresh interpreter leaves jax, flax, optax and
+    arcle_tpu out of sys.modules."""
     code = (
         "import sys\n"
         "import arcle_tpu_torch.training.train\n"
@@ -456,6 +478,9 @@ def test_train_imports_no_jax():
         "import arcle_tpu_torch.training.emaml\n"
         "import arcle_tpu_torch.training.supervise\n"
         "import arcle_tpu_torch.models.gpt\n"
+        "import arcle_tpu_torch.benchmarks\n"
+        "import arcle_tpu_torch.benchmarks.eval_answer_given\n"
+        "import arcle_tpu_torch.training.train_answer_given\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'arcle_tpu'))\n"
         "assert not bad, bad\n"
