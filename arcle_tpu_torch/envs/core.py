@@ -22,10 +22,10 @@ import torch
 from ..core.state import EnvState, Action, init_state, I8, I32, F32
 from ..loaders.loader import TaskBank
 from ..ops.table import (
-    OpTable, finish_flood, dense_reward as _dense, pixel_reward as _pixel,
+    OpTable, dense_reward as _dense, pixel_reward as _pixel,
     answers_match_any as _match,
 )
-from ..ops.step_kernel import cuda_step_deferred
+from ..ops.step_kernel import complete_step
 from .meta import augment_task, draw_augmentation
 
 
@@ -177,13 +177,7 @@ class BatchedEnv:
                         torch.Tensor]:
         """Lockstep step: returns ``(carry, obs, reward, terminated,
         truncated)``; ``obs`` is the post-step state before auto-reset."""
-        env2, reward, term, pending = cuda_step_deferred(bs.env, action,
-                                                         self.table)
-        # the kernel finishes flood fills itself (pending is all False);
-        # the plain CPU path completes its deferred ones here
-        if not env2.grid.is_cuda and bool(pending.any()):
-            env2 = finish_flood(env2, action, self.table, pending)
-
+        env2, reward, term = complete_step(bs.env, action, self.table)
         env2, reward, term = self._shape_reward_term(env2, reward, term)
         if self.episode_limit > 0:
             trunc = env2.steps >= self.episode_limit

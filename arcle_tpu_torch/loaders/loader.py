@@ -1,7 +1,8 @@
 """Dataset loaders -> task banks of tensors.
 
 Counterpart of ``arcle_tpu/loaders/loader.py``.  A :class:`Loader` parses
-ARC-format JSON into per-task lists of numpy grids (the reference's
+ARC-format JSON (with the native baker of :mod:`..native` where it builds,
+else ``json``) into per-task lists of numpy grids (the reference's
 injectable seam); :class:`TaskBank` holds every pair of every task padded
 into ``[P, H, W]`` int8 tensors with per-task offsets and counts, so a
 reset gathers its task on the device.
@@ -139,6 +140,14 @@ class Loader(ABC):
 
 
 def _parse_arc_json(text: str) -> TaskTuple:
+    # the native C++ baker first (csrc/bake.cpp), json where it is missing
+    # or refuses the text
+    from ..native import bake_task_native
+    baked = bake_task_native(text)
+    if baked is not None:
+        train, test = baked
+        return ([i for i, _ in train], [o for _, o in train],
+                [i for i, _ in test], [o for _, o in test], {})
     problem = json.loads(text)
     ti = [np.array(d["input"], np.int8) for d in problem["train"]]
     to = [np.array(d["output"], np.int8) for d in problem["train"]]

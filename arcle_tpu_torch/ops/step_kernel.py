@@ -18,6 +18,9 @@ import time.
 * :func:`plain_step_deferred` is the batched plain PyTorch transition of
   ``ops/table.py``; with :func:`~arcle_tpu_torch.ops.table.finish_flood` it
   is the spec the kernel is held to.
+* :func:`complete_step` is one whole step on either device: the kernel, or
+  the plain step with its deferred floods finished.  The batched engine
+  and the single-env engine both step through it.
 * ``LAUNCHES`` counts kernel launches (not plain calls).
 
 The kernel treats ``input`` as read-only: a reset-on-submit re-init keeps
@@ -42,7 +45,7 @@ import torch
 
 from ..core.state import EnvState, Action, I8, I32, F32
 from .groups import G
-from .table import OpTable, step_deferred
+from .table import OpTable, finish_flood, step_deferred
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "step_kernel.cu"
@@ -202,6 +205,18 @@ def cuda_step_deferred(state: EnvState, action: Action, table: OpTable):
                          stream)
     LAUNCHES += 1
     return result
+
+
+def complete_step(state: EnvState, action: Action, table: OpTable):
+    """One whole step: :func:`cuda_step_deferred`, and on the CPU the
+    deferred flood fills finished.  Returns ``(state, reward,
+    terminated)``.  The kernel finishes flood fills itself, so on CUDA the
+    host is asked nothing; the plain path asks whether any env is
+    pending."""
+    state2, reward, term, pending = cuda_step_deferred(state, action, table)
+    if not state2.grid.is_cuda and bool(pending.any()):
+        state2 = finish_flood(state2, action, table, pending)
+    return state2, reward, term
 
 
 # The outputs in the kernel's order, by kind: names, dtype, and the shape

@@ -40,6 +40,29 @@ class OpTable:
     def replace(self, **kw) -> "OpTable":
         return dataclasses.replace(self, **kw)
 
+    def op_names(self) -> Tuple[str, ...]:
+        """Capitalised names in the reference's ``op_names`` convention
+        (base.py:66)."""
+        obj = ("MoveU", "MoveD", "MoveR", "MoveL", "Rotate90", "Rotate270",
+               "FlipH", "FlipV", "FlipD0", "FlipD1")
+        fixed = {G.PASTE: "Paste", G.COPY_FROM_INPUT: "CopyFromInput",
+                 G.RESET_GRID: "ResetGrid", G.RESIZE_GRID: "ResizeGrid",
+                 G.CROP_GRID: "CropGrid", G.SUBMIT: "Submit",
+                 G.RESIZE_TO_ANSWER: "ResizeToAnswer"}
+        out = []
+        for grp, par in zip(self.group, self.param):
+            if grp == G.COLOR:
+                out.append(f"Color{par}")
+            elif grp == G.FLOOD:
+                out.append(f"FloodFill{par}")
+            elif grp == G.OBJECT:
+                out.append(obj[par])
+            elif grp == G.COPY:
+                out.append("CopyI" if par == 0 else "CopyO")
+            else:
+                out.append(fixed.get(grp, "Noop"))
+        return tuple(out)
+
     def rows(self, device) -> torch.Tensor:
         """int32 ``[3, n_ops]``: group, param and reset_sel per op."""
         return torch.tensor([self.group, self.param,

@@ -3,7 +3,9 @@
 Counterpart of the functional part of ``arcle_tpu/wrappers/__init__.py``
 (reference wrappers/bbox.py:9-49 and the FilterO2ARC projection of
 agents/env.py:89-126).  Every function takes batched tensors: grids
-``[B, H, W]``, per-env scalars ``[B]``.
+``[B, H, W]``, per-env scalars ``[B]``.  The Gymnasium wrappers of the
+single-env adapters (``BBoxWrapper``, ``PointWrapper``, ``FilterO2ARC``,
+:mod:`.gym_wrappers`) are defined here only where ``gymnasium`` imports.
 """
 
 from __future__ import annotations
@@ -100,3 +102,11 @@ __all__ = [
     "full_flatten_obs", "unflatten_full", "FULL_OBS_FIELDS", "FULL_OBS_DIM",
     "FILTER_O2ARC_KEYS",
 ]
+
+try:
+    import gymnasium  # noqa: F401
+except ImportError:
+    gymnasium = None
+if gymnasium is not None:
+    from .gym_wrappers import BBoxWrapper, PointWrapper, FilterO2ARC
+    __all__ += ["BBoxWrapper", "PointWrapper", "FilterO2ARC"]

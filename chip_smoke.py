@@ -16,7 +16,9 @@ Phases, each printing its numbers on a line of its own:
               raw_table at 30x30, o2arc at 5x5, the answer-given suite's
               colour-only table (no Submit op, max_trial=-1) at 5x5 on
               random pairs and on ARC-like tasks, and raw / arc at 12x20,
-              5x7 and 16x64 (the instantiation with runtime H, W), each after
+              5x7 and 16x64 (the instantiation with runtime H, W), and
+              the gym adapters' O2ARC without flood ops (25 ops) and
+              crop33 at max_trial=127, each after
               the adversarial cases of ``arcle_tpu_torch/testing.py``
               (corridor floods
               seeded at their far end, int8 selections other than 0/1,
@@ -30,6 +32,20 @@ Phases, each printing its numbers on a line of its own:
               on CUDA against the CPU, 256 envs x 60 steps with
               episode_limit=50, half of the envs steered to solve: solved
               terminations, truncations and auto-resets, all bit-exact;
+   gym     -- the Gymnasium surface at B=1, with or without gymnasium:
+              the native C++ engine and baker built with g++ (seconds
+              logged); the golden-trace set (>= 200 traces, the reference
+              fixture's seeds) replayed with ``replay_trace`` and
+              ``replay_trace_firstsel`` through ``O2ARCv2Env(backend=
+              "torch", device="cuda")`` at 100.00 %, one kernel launch per
+              step; Raw, ARC, O2ARCv2, O2ARCNoFill and CustomO2ARCEnv
+              (augment, dense) on the card against the native engine and
+              the NumPy oracle, 4 episodes x 60 random steps each, every
+              observation field, the reward and ``terminated`` bit-exact;
+              O2ARCv2 steps per second on the card and native (host clock,
+              2,000 steps after a warm-up); where gymnasium imports, one
+              ``gym.make("ARCLE-CUDA/O2ARCv2Env-v0")`` episode under
+              ``BBoxWrapper`` on the card;
 5. main    -- the O2ARCv2 main path: 4096 envs, random bbox actions,
               episode_limit=100, auto-reset from an 8-deep pool; 100 steps
               after a warm-up rollout, with the kernel's launch count,
@@ -52,10 +68,10 @@ Phases, each printing its numbers on a line of its own:
               wrapper's host time per call (host clock, 200 calls), the
               host-inclusive time of a loop of wrapper calls, and the plain
               step; then the 100-step loop through the kernel and through
-              the plain step; and the kernel's device time at B=2 and B=64
-              at 30x30, the batches train_gpt's E-MAML and PPO launch it at,
-              and at B=1024 5x5 on the colour-only table, where
-              train_answer_given launches it;
+              the plain step; and the kernel's device time at B=1 (the gym
+              adapters), B=2 and B=64 at 30x30, the batches train_gpt's
+              E-MAML and PPO launch it at, and at B=1024 5x5 on the
+              colour-only table, where train_answer_given launches it;
 7. gpt     -- the GPT policy at full width (GPTConfig(): 8 layers, 16
               heads, width 128, T=1837) on the card against the same
               weights on the CPU, B=8 from an O2ARCv2 reset as in
@@ -99,9 +115,10 @@ It then prints a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no result.  Without CUDA it exits with code 2.
 ``--profile`` prints the device work per step of the engine loop, the PPO
-rollout, the GPT forward, the E-MAML rollout and the answer-given rollout
-and minibatch update, beside their wall clock (``torch.profiler`` device
-events) and exits.
+rollout, the gym adapter on the card (with its host split), the GPT
+forward, the E-MAML rollout and the answer-given rollout and minibatch
+update, beside their wall clock (``torch.profiler`` device events) and
+exits.
 """
 
 from __future__ import annotations
@@ -130,6 +147,9 @@ EMAML_INNER, EMAML_META = 2, 2  # train_gpt's 20 and 5, cut
 GPT_BATCHES = (2, 64)          # train_gpt's E-MAML and PPO env batches
 AG_B, AG_T = 1024, 64          # train_answer_given's envs and rollout
 AG_POLICY_B = 256              # the card-vs-CPU check's batch
+GYM_B = 1                      # the gym adapters step one env
+GYM_EPISODES, GYM_STEPS = 4, 60   # per env class, card vs native vs oracle
+GYM_RATE_STEPS = 2000          # adapter steps timed per backend
 MLP_BF16_TOL = 0.05            # of each output's largest magnitude
 
 
@@ -233,9 +253,9 @@ def phase_parity(dev) -> float:
     worst = 0.0
     # (name, table, H, W[, loader]): the four tables at 30x30, the 5x5
     # geometry, the answer-given suite's colour-only table (no Submit op,
-    # max_trial=-1) at 5x5 on its two task distributions, and shapes that
+    # max_trial=-1) at 5x5 on its two task distributions, shapes that
     # take the kernel's instantiation with runtime H, W (non-square, odd,
-    # wider than 32 columns)
+    # wider than 32 columns), and the no-fill and crop33 tables
     cases = [("o2arc", o2arc_table(max_trial=3), 30, 30),
              ("o2arc_crop33", o2arc_table(max_trial=3, crop_at_33=True),
               30, 30),
@@ -248,7 +268,14 @@ def phase_parity(dev) -> float:
              ("color_5x5", color_table(10), 5, 5,
               RandomPairLoader(256, 5, 5, 10, seed=3)),
              ("color_5x5_arc", color_table(10), 5, 5,
-              small_arc_loader(64, 5, 10, seed=3))]
+              small_arc_loader(64, 5, 10, seed=3)),
+             # the gym adapters' tables no other path launches: O2ARC
+             # without the flood ops (25 ops, Submit at 24), and
+             # CustomO2ARCEnv's at the int8 trial counter's limit
+             ("o2arc_nofill", o2arc_table(max_trial=3, no_fill=True), 30,
+              30),
+             ("o2arc_crop33_mt127", o2arc_table(max_trial=127,
+                                                crop_at_33=True), 30, 30)]
     for ti, (name, table, H, W, *given) in enumerate(cases):
         loader = given[0] if given else SyntheticLoader(
             16, seed=3, min_size=2, max_size=min(H, W, 12))
@@ -387,6 +414,217 @@ def engine_answer_given(dev):
         f"{steps} steps, episode_limit={limit}, colour-only 5x5 table, "
         f"{solved} solved terminations, {truncated} truncations, every "
         "one auto-reset, pixel reward, term, trunc, obs, carry bit-exact")
+
+
+def gym_random_action(rng, n_ops: int, side: int = 30) -> dict:
+    """An empty, one-pixel or box selection and a uniform op."""
+    import numpy as np
+    kind = int(rng.integers(0, 3))
+    sel = np.zeros((side, side), np.int8)
+    if kind == 1:
+        sel[rng.integers(0, side), rng.integers(0, side)] = 1
+    elif kind == 2:
+        x1, x2 = sorted(rng.integers(0, side, 2).tolist())
+        y1, y2 = sorted(rng.integers(0, side, 2).tolist())
+        sel[x1:x2 + 1, y1:y2 + 1] = 1
+    return {"selection": sel, "operation": int(rng.integers(0, n_ops))}
+
+
+def gym_compare(what: str, got: dict, want: dict) -> None:
+    """Every field of an observation dict (``want``'s keys) bit-exact."""
+    import numpy as np
+    for k, v in want.items():
+        if k == "object_states":
+            gym_compare(what, got[k], v)
+            continue
+        g, w = np.asarray(got[k]), np.asarray(v)
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                not np.array_equal(g, w):
+            raise AssertionError(f"gym: {what}: field {k} differs")
+
+
+def gym_replay(env, traces, infos) -> tuple:
+    """The golden set through ``env`` with both harnesses; returns the
+    steps taken and the kernel launches, which must be equal."""
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.validation import (
+        ReplayReport, replay_trace, replay_trace_firstsel)
+    steps = 0
+    step_kernel.LAUNCHES = 0
+    for name, replay in (("replay_trace", replay_trace),
+                         ("replay_trace_firstsel", replay_trace_firstsel)):
+        report = ReplayReport()
+        for idx, (trace, (ti, sub)) in enumerate(zip(traces, infos)):
+            replay(env, trace, {"adaptation": False, "prob_index": ti,
+                                "subprob_index": sub}, idx, report)
+            steps += env.action_steps
+        if report.tested != len(traces) or report.pass_rate != 100.0:
+            raise AssertionError(f"gym: golden {name}: {report.summary()}")
+        log(f"gym golden {name}: {len(traces)} traces through "
+            f"O2ARCv2Env(backend='torch', device='cuda'): {report.summary()}")
+    launches = step_kernel.LAUNCHES
+    if launches != steps:
+        raise AssertionError(f"gym: {launches} kernel launches for {steps} "
+                             "replayed steps")
+    return steps, launches
+
+
+def gym_three_way(dev, cls, family: str, kw: dict) -> int:
+    """``cls`` on the card against the same class on the native engine and
+    against the NumPy oracle on the adapter's task: GYM_EPISODES episodes
+    of GYM_STEPS random steps; the last episode re-initialises on Submit.
+    Returns the card's steps."""
+    import numpy as np
+    from arcle_tpu_torch.envs import CustomO2ARCEnv
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.oracle import OracleEnv
+
+    loader = SyntheticLoader(8, seed=5)
+    card = cls(data_loader=loader, backend="torch", device=dev, **kw)
+    host = cls(data_loader=loader, backend="native", **kw)
+    custom = isinstance(card, CustomO2ARCEnv)
+    rng = np.random.default_rng(17)
+    launches0, steps = step_kernel.LAUNCHES, 0
+    for ep in range(GYM_EPISODES):
+        ros = ep == GYM_EPISODES - 1
+        outs = []
+        for env in (card, host):
+            if custom:
+                env.set_task(ep)
+                outs.append(env.reset(seed=ep))
+            else:
+                outs.append(env.reset(seed=ep, options={
+                    "prob_index": ep, "subprob_index": 0,
+                    "reset_on_submit": ros}))
+        what = f"{cls.__name__} episode {ep}"
+        gym_compare(f"{what} reset", outs[0][0], outs[1][0])
+        orc = OracleEnv(family, card.H, card.W, card.max_trial)
+        orc.reset(card.input_, card.answer, reset_on_submit=ros and not custom)
+        gym_compare(f"{what} reset vs oracle", orc.state, outs[0][0])
+        for t in range(GYM_STEPS):
+            act = gym_random_action(rng, len(card.operations), card.H)
+            o_c, r_c, te_c, _, i_c = card.step(act)
+            o_n, r_n, te_n, _, i_n = host.step(act)
+            st, r_o, te_o = orc.step(act["selection"], act["operation"])
+            if custom:
+                r_o = card._dense_reward(st, r_o)
+            at = f"{what} step {t} op {act['operation']}"
+            if not (r_c == r_n == r_o and te_c == te_n == te_o):
+                raise AssertionError(f"gym: {at}: reward {r_c} / {r_n} / "
+                                     f"{r_o}, terminated {te_c} / {te_n} / "
+                                     f"{te_o} (card / native / oracle)")
+            gym_compare(f"{at} card vs native", o_c, o_n)
+            gym_compare(f"{at} card vs oracle", o_c,
+                        {k: st[k] for k in o_c})
+            if not (i_c["steps"] == i_n["steps"] == st["_steps"]) or \
+                    i_c.get("submit_count") != i_n.get("submit_count"):
+                raise AssertionError(f"gym: {at}: info differs")
+            steps += 1
+    if step_kernel.LAUNCHES - launches0 != steps:
+        raise AssertionError(f"gym: {cls.__name__}: "
+                             f"{step_kernel.LAUNCHES - launches0} launches "
+                             f"for {steps} steps")
+    return steps
+
+
+def gym_rate(dev, backend: str) -> float:
+    """O2ARCv2 adapter steps per second (host clock) over GYM_RATE_STEPS
+    random steps after a warm-up of 100."""
+    import numpy as np
+    from arcle_tpu_torch.envs import O2ARCv2Env
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    env = O2ARCv2Env(data_loader=SyntheticLoader(8, seed=5), backend=backend,
+                     device=dev)
+    rng = np.random.default_rng(3)
+    acts = [gym_random_action(rng, 35) for _ in range(GYM_RATE_STEPS)]
+    env.reset(seed=0, options={"prob_index": 0, "subprob_index": 0})
+    for a in acts[:100]:
+        env.step(a)
+    t0 = time.perf_counter()
+    for a in acts:
+        env.step(a)
+    return GYM_RATE_STEPS / (time.perf_counter() - t0)
+
+
+def phase_gym(dev, card: str) -> dict:
+    """The Gymnasium surface on the card at B=1 (see the module)."""
+    from arcle_tpu_torch import native
+    from arcle_tpu_torch.envs import (
+        ARCEnv, CustomO2ARCEnv, O2ARCNoFillEnv, O2ARCv2Env, RawARCEnv, gym)
+    from arcle_tpu_torch.loaders import ListLoader
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.validation import (
+        generate_adversarial_traces, generate_golden_traces)
+
+    built = {name: native.build(name) for name in ("engine", "bake")}
+    if not (native.available() and native.engine_available()):
+        raise AssertionError(f"gym: the native libraries do not load: "
+                             f"{native._failed}")
+    log("gym build: " + ", ".join(f"{p.name} {sec:.2f} s" for p, sec in
+                                  built.values()) + " (g++ -O2)")
+    log(f"gym: gymnasium {'present, ' + gym.__version__ if gym else 'absent'}"
+        " on this machine")
+
+    tasks, traces, infos = generate_golden_traces(n_traces=130, seed=3,
+                                                  n_steps=25)
+    atasks, atraces, ainfos = generate_adversarial_traces(seed=9)
+    n = len(tasks)
+    tasks, traces = list(tasks) + list(atasks), traces + atraces
+    infos = infos + [(ti + n, sub) for ti, sub in ainfos]
+    if len(traces) < 200:
+        raise AssertionError(f"gym: only {len(traces)} golden traces")
+    env = O2ARCv2Env(data_loader=ListLoader(tasks), max_trial=-1,
+                     backend="torch", device=dev)
+    golden_steps, golden_launches = gym_replay(env, traces, infos)
+
+    step_kernel.LAUNCHES = 0
+    classes = ((RawARCEnv, "raw", {}), (ARCEnv, "arc", {}),
+               (O2ARCv2Env, "o2arc", {"max_trial": 3}),
+               (O2ARCNoFillEnv, "o2arc_nofill", {}),
+               (CustomO2ARCEnv, "o2arc_crop33",
+                {"max_trial": 7, "augment": True, "dense": True}))
+    compared = {cls.__name__: gym_three_way(dev, cls, fam, kw)
+                for cls, fam, kw in classes}
+    log(f"gym: card vs native vs oracle, {GYM_EPISODES} episodes x "
+        f"{GYM_STEPS} random steps (empty, pixel, bbox) per class: " +
+        ", ".join(f"{k} {v} steps" for k, v in compared.items()) +
+        "; obs, reward, terminated, info bit-exact")
+
+    rates = {}
+    for name, backend in (("card", "torch"), ("native", "native"),
+                          ("card2", "torch"), ("native2", "native")):
+        rates[name] = gym_rate(dev, backend)
+    log(f"timing gym O2ARCv2 adapter: card {rates['card']:,.0f} / "
+        f"{rates['card2']:,.0f} steps/s, native {rates['native']:,.0f} / "
+        f"{rates['native2']:,.0f} steps/s ({GYM_RATE_STEPS} steps after a "
+        f"warm-up, host clock; {card})")
+
+    episode = 0
+    if gym is not None:
+        from arcle_tpu_torch.loaders import SyntheticLoader
+        from arcle_tpu_torch.wrappers import BBoxWrapper
+        env = BBoxWrapper(gym.make("ARCLE-CUDA/O2ARCv2Env-v0",
+                                   data_loader=SyntheticLoader(8, seed=5),
+                                   device=dev, max_trial=3,
+                                   max_episode_steps=100))
+        env.action_space.seed(0)
+        before = step_kernel.LAUNCHES
+        env.reset(seed=0, options={"prob_index": 0})
+        done = False
+        while not done:
+            obs, r, term, trunc, _ = env.step(env.action_space.sample())
+            done = term or trunc
+            episode += 1
+        if step_kernel.LAUNCHES - before != episode or \
+                not env.observation_space.contains(obs):
+            raise AssertionError("gym: the gym.make episode")
+        log(f"gym: gym.make('ARCLE-CUDA/O2ARCv2Env-v0') under BBoxWrapper, "
+            f"one episode of {episode} steps on the card "
+            f"({'terminated' if term else 'truncated'})")
+    return dict(launches=golden_launches + step_kernel.LAUNCHES,
+                golden_steps=golden_steps, rates=rates,
+                compared=sum(compared.values()), episode=episode)
 
 
 def main_env(dev):
@@ -1246,9 +1484,9 @@ def phase_timing(dev, card: str) -> dict:
 
     by_geometry = {f"{h}x{w}": time_kernel(dev, card, h, w)
                    for h, w in ((30, 30), (5, 5))}
-    # the batches train_gpt launches the kernel at: E-MAML's 2 tasks x 1
-    # env, GPT PPO's 64 envs
-    for batch in GPT_BATCHES:
+    # the batches the kernel is launched at: the gym adapters' single env,
+    # train_gpt's E-MAML (2 tasks x 1 env) and GPT PPO (64 envs)
+    for batch in (GYM_B,) + GPT_BATCHES:
         by_geometry[f"30x30_B{batch}"] = time_kernel(dev, card, 30, 30,
                                                      batch)
     # where train_answer_given launches it: 1024 envs, 5x5, colour ops only
@@ -1335,8 +1573,65 @@ def phase_profile(dev, card: str):
     log(f"profile PPO rollout: {us:.1f} us of device work in {ops:.1f} "
         f"device operations per step, step_kernel {k_us:.1f} us "
         f"(torch.profiler device events; {card})")
+    phase_profile_gym(dev, card)
     phase_profile_gpt(dev, card)
     phase_profile_answer_given(dev, card)
+
+
+def phase_profile_gym(dev, card: str):
+    """Where an O2ARCv2 adapter step on the card goes: device work per step
+    against its wall clock (torch.profiler), and the host clock of the
+    engine's three parts (the selection's upload, the step, the packed
+    read-back with its wait) beside the rest of the adapter."""
+    import numpy as np
+    from arcle_tpu_torch.envs import O2ARCv2Env
+    from arcle_tpu_torch.loaders import SyntheticLoader
+
+    env = O2ARCv2Env(data_loader=SyntheticLoader(8, seed=5),
+                     backend="torch", device=dev)
+    rng = np.random.default_rng(3)
+    acts = [gym_random_action(rng, 35) for _ in range(500)]
+    env.reset(seed=0, options={"prob_index": 0, "subprob_index": 0})
+    eng = env.engine
+    spent = {"upload": 0.0, "step": 0.0, "read_back": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    def steps():
+        for a in acts:
+            env.step(a)
+    steps()                                                 # warm-up
+    t0 = time.perf_counter()
+    steps()
+    wall = (time.perf_counter() - t0) / len(acts) * 1e3
+    us, ops, k_us = device_work(steps, len(acts))
+    import arcle_tpu_torch.envs.single as single
+    complete = single.complete_step
+    eng._upload = timed("upload", eng._upload)
+    eng._read_back = timed("read_back", eng._read_back)
+    single.complete_step = timed("step", complete)
+    try:
+        t0 = time.perf_counter()
+        steps()
+        total = time.perf_counter() - t0
+    finally:
+        single.complete_step = complete
+    split = {k: v / len(acts) * 1e6 for k, v in spent.items()}
+    rest = total / len(acts) * 1e6 - sum(split.values())
+    log(f"profile gym O2ARCv2 adapter (card, B=1): {us:.1f} us of device "
+        f"work in {ops:.1f} device operations per step, step_kernel "
+        f"{k_us:.1f} us; {wall:.3f} ms per step (host clock), the card idle "
+        f"{1 - us / 1e3 / wall:.1%} of it; host per step: upload "
+        f"{split['upload']:.1f} us, step (wrapper and launch) "
+        f"{split['step']:.1f} us, packed read-back with its wait "
+        f"{split['read_back']:.1f} us, the adapter's rest {rest:.1f} us "
+        f"(torch.profiler device events, host clock; {card})")
 
 
 def top_kernels(fn, k: int = 6) -> str:
@@ -1490,11 +1785,13 @@ def main() -> int:
 
     worst = phase_parity(dev)
     phase_engine(dev)
-    launches = {"main": phase_main(dev)}
+    gym_out = phase_gym(dev, card)
+    launches = {"gym": gym_out["launches"], "main": phase_main(dev)}
     phase_learner(dev)
     launches["train"] = phase_train(dev, card)
     timing = phase_timing(dev, card)
     t30, tag = timing["30x30"], timing[f"5x5_color_B{AG_B}"]
+    t1 = timing[f"30x30_B{GYM_B}"]
     gpt_ms = phase_gpt(dev, card)
     emaml = phase_emaml(dev, card)
     launches["emaml"] = emaml["launches"]
@@ -1524,7 +1821,19 @@ def main() -> int:
         "device_ms": tag["device_ms"], "host_us": tag["host_us"],
         "bound_ms": tag["bound_ms"], "bound_by": "bytes",
         "bytes_per_launch": tag["bytes_per_launch"],
+        "library_ms": None}, {
+        # the same kernel at the shape the gym adapters launch it
+        "name": f"step_kernel@30x30_B{GYM_B}", "route": "cuda",
+        "source": "arcle_tpu_torch/csrc/step_kernel.cu",
+        "replaces": "arcle_tpu/ops/pallas_step.py:248",
+        "launches": launches["gym"], "max_abs_err": worst,
+        "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+        "device_ms": t1["device_ms"], "host_us": t1["host_us"],
+        "bound_ms": t1["bound_ms"], "bound_by": "bytes",
+        "bytes_per_launch": t1["bytes_per_launch"],
         "library_ms": None}],
+        "gym_steps_per_s": gym_out["rates"],
+        "gym_golden_steps": gym_out["golden_steps"],
         "gpt_forward_ms": gpt_ms,
         "emaml_s_per_meta_iteration": emaml["s"],
         "emaml_peak_gb": emaml["peak_gb"],
