@@ -24,16 +24,19 @@ Layout (mirrors ``arcle_tpu``)
                                 (``csrc/*.cpp``, g++ + ctypes)
 - ``arcle_tpu_torch.oracle``  : the NumPy oracle of the reference semantics
 - ``arcle_tpu_torch.validation``: golden-trace generation and replay
-- ``arcle_tpu_torch.models``  : the MLP and GPT policies, the op + bbox
+- ``arcle_tpu_torch.models``  : the MLP, GPT and DT policies, the op + bbox
                                 distribution, weights carried from flax
 - ``arcle_tpu_torch.training``: rollout, GAE, PPO, E-MAML, the training
                                 entry points, the run supervisor
 - ``arcle_tpu_torch.utils``   : run config, metric logging, checkpoints
+- ``arcle_tpu_torch.parallel``: meshes, data- and tensor-parallel placement,
+                                multi-process init and liveness, the
+                                scaling model and the multi-rank dry run
 """
 
 __version__ = "0.1.0"
 
 from . import (  # noqa: F401
     core, loaders, ops, envs, wrappers, models, training, utils, native,
-    oracle, validation,
+    oracle, validation, parallel,
 )

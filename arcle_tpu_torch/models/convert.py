@@ -54,6 +54,32 @@ def gpt_state_dict_from_flax(params: Mapping[str, Any]
     return _state_dict_from_flax(params)
 
 
+def dt_state_dict_from_flax(params: Mapping[str, Any]
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """A flax ``DTPolicy`` param tree -> the port's ``state_dict``.  Its
+    attention's ``DenseGeneral`` kernels are flattened first: ``query`` /
+    ``key`` / ``value`` ``[C, H, D]`` to ``[C, H*D]`` and their ``[H, D]``
+    biases to ``[H*D]``, ``out`` ``[H, D, C]`` to ``[H*D, C]``; the
+    renaming then transposes them into ``nn.Linear`` weights."""
+    def flatten(node, module=""):
+        out = {}
+        for name, sub in node.items():
+            if isinstance(sub, Mapping):
+                out[name] = flatten(sub, name)
+                continue
+            value = np.asarray(sub)
+            if module in ("query", "key", "value"):
+                value = value.reshape(value.shape[0], -1) \
+                    if name == "kernel" else value.reshape(-1)
+            elif module == "out" and name == "kernel":
+                value = value.reshape(-1, value.shape[-1])
+            out[name] = value
+        return out
+
+    tree = params["params"] if "params" in params else params
+    return _state_dict_from_flax(flatten(tree))
+
+
 def hypermlp_state_dict_from_flax(params: Mapping[str, Any]
                                   ) -> "OrderedDict[str, torch.Tensor]":
     """A flax ``HyperMLP`` (or ``WLinear``) param tree -> the port's

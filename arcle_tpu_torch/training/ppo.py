@@ -12,6 +12,18 @@ is the same formula as ``optax.adam``.
 
 ``params`` is the policy ``nn.Module``; :func:`train_step` updates it and
 its optimizer in place and returns the loss statistics as device tensors.
+
+Data parallelism (``group=``, a process group over the data axis): every
+rank holds a block of the env batch, ``[T, B/n]``, and the update computes
+the unsharded function.  The advantage statistics are all-reduced (count
+and sum, then the centred sum of squares, as ``jnp.std`` takes two
+passes); the minibatch permutation is one global permutation of the
+``T*B`` rows, broadcast from the group's first rank, of which each rank
+takes the rows it holds (its local row ``(t, b)`` is global row ``t*B +
+rank*B/n + b``); every loss term is a local sum over the global count;
+one SUM all-reduce of a flat gradient buffer precedes the clip, whose norm
+counts each tensor-parallel block once; the statistics are all-reduced for
+logging.  Without a group the code path is the single-process one.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ import dataclasses
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .rollout import Trajectory, gae
@@ -66,17 +79,34 @@ class PPOBatch(NamedTuple):
         return PPOBatch(*(None if x is None else x[idx] for x in self))
 
 
+def _normalise(adv: torch.Tensor, group) -> torch.Tensor:
+    """``(adv - mean) / (std + 1e-8)`` over the advantages of every rank
+    of ``group``, in two passes as ``jnp.std``."""
+    s = torch.stack([adv.sum(), torch.full_like(adv.sum(), adv.numel())])
+    dist.all_reduce(s, group=group)
+    mean = s[0] / s[1]
+    css = ((adv - mean) ** 2).sum()
+    dist.all_reduce(css, group=group)
+    return (adv - mean) / (torch.sqrt(css / s[1]) + 1e-8)
+
+
 def batch_from_trajectory(traj: Trajectory, last_value: torch.Tensor,
                           cfg: PPOConfig, include_aux: bool = False,
-                          grid_slice: slice = slice(902, 1802)) -> PPOBatch:
+                          grid_slice: slice = slice(902, 1802),
+                          group=None) -> PPOBatch:
     """Flatten a trajectory into a PPO batch with normalised advantages.
     ``include_aux`` adds the targets of the GPT auxiliary predictions: r_t,
     r_{t-1} (zeroed across episode boundaries) and the next observation's
-    grid cells (``grid_slice`` locates them in the flattened obs)."""
+    grid cells (``grid_slice`` locates them in the flattened obs).  With a
+    data-parallel ``group`` the advantages are normalised over every
+    rank's trajectory."""
     adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda,
                    cfg.bootstrap_truncation)
-    # jnp.std is the population standard deviation
-    adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if group is None:
+        # jnp.std is the population standard deviation
+        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    else:
+        adv_n = _normalise(adv, group)
     flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
     aux = {}
     if include_aux:
@@ -97,10 +127,14 @@ def batch_from_trajectory(traj: Trajectory, last_value: torch.Tensor,
 
 
 def ppo_loss(params, agent, batch: PPOBatch, cfg: PPOConfig,
-             ent_coeff=None):
+             ent_coeff=None, count=None, aux_denom=None):
     """Clipped PPO loss (emaml_policy.py:38-99); returns
     ``(total, stats)``.  ``ent_coeff`` optionally overrides
-    ``cfg.entropy_coeff``."""
+    ``cfg.entropy_coeff``.  ``count`` turns every mean over rows into a sum
+    over this batch divided by ``count`` (a data-parallel rank's share of
+    the global mean), and ``aux_denom`` replaces the next-grid loss's
+    ``max(sum(aux_valid), 1)``."""
+    mean = torch.mean if count is None else (lambda x: x.sum() / count)
     lp, value, entropy_arr = agent.evaluate_fn(params, batch.obs,
                                                batch.actions)
     ratio = torch.exp(lp - batch.log_probs)
@@ -108,17 +142,17 @@ def ppo_loss(params, agent, batch: PPOBatch, cfg: PPOConfig,
         ratio * batch.advantages,
         torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps)
         * batch.advantages)
-    policy_loss = -surr.mean()
+    policy_loss = -mean(surr)
 
     vf_err = (value - batch.returns) ** 2
     vf_clipped = (batch.values
                   + torch.clamp(value - batch.values, -cfg.vf_clip,
                                 cfg.vf_clip)
                   - batch.returns) ** 2
-    vf_loss = 0.5 * torch.maximum(vf_err, vf_clipped).mean()
+    vf_loss = 0.5 * mean(torch.maximum(vf_err, vf_clipped))
 
-    entropy = entropy_arr.mean()
-    approx_kl = (batch.log_probs - lp).mean()
+    entropy = mean(entropy_arr)
+    approx_kl = mean(batch.log_probs - lp)
 
     if ent_coeff is None:
         ent_coeff = cfg.entropy_coeff
@@ -131,12 +165,13 @@ def ppo_loss(params, agent, batch: PPOBatch, cfg: PPOConfig,
         # r_{t-1} from the unconditioned pass, r_t and the next grid from
         # the action-conditioned one (paper §4.1.1)
         aux = agent.aux_fn(params, batch.obs, batch.actions)
-        rtm1_loss = ((aux["rtm1"] - batch.prev_rewards) ** 2).mean()
-        r_loss = ((aux["r"] - batch.rewards) ** 2).mean()
+        rtm1_loss = mean((aux["rtm1"] - batch.prev_rewards) ** 2)
+        r_loss = mean((aux["r"] - batch.rewards) ** 2)
         g_logp = F.log_softmax(aux["g_logits"], dim=-1)
         tgt = batch.next_grid.long().clamp(0, g_logp.shape[-1] - 1)
         ce = -torch.gather(g_logp, -1, tgt.unsqueeze(-1)).squeeze(-1)
-        denom = torch.clamp(batch.aux_valid.sum(), min=1.0)
+        denom = torch.clamp(batch.aux_valid.sum(), min=1.0) \
+            if aux_denom is None else aux_denom
         g_loss = (ce.mean(-1) * batch.aux_valid).sum() / denom
         aux_loss = rtm1_loss
         if cfg.aux_terms in ("rtm1+rt", "all"):
@@ -170,14 +205,36 @@ def make_optimizer(params, cfg: PPOConfig) -> torch.optim.Adam:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: List[torch.Tensor] = (),
+                         model_group=None) -> None:
     """``optax.clip_by_global_norm`` in place: every gradient becomes
     ``g / norm * max_norm`` where the global norm reaches ``max_norm``, and
-    stays as it is below it.  No value comes back to the host."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    stays as it is below it.  No value comes back to the host.
+    ``sharded`` are the gradients of tensor-parallel blocks: their squares
+    are summed over ``model_group``, so each block counts once."""
+    norm_sq = sum(torch.sum(g * g) for g in grads)
+    if sharded:
+        blocks = sum(torch.sum(g * g) for g in sharded)
+        dist.all_reduce(blocks, group=model_group)
+        norm_sq = norm_sq + blocks
+    norm = torch.sqrt(norm_sq)
     keep = norm < max_norm
-    for g in grads:
+    for g in (*grads, *sharded):
         g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+def _clip(params, max_norm: float) -> None:
+    grads, sharded, group = [], [], None
+    for p in params.parameters():
+        if p.grad is None:
+            continue
+        if getattr(p, "tp_group", None) is None:
+            grads.append(p.grad)
+        else:
+            sharded.append(p.grad)
+            group = p.tp_group
+    clip_by_global_norm_(grads, max_norm, sharded, group)
 
 
 def permutations(generator: Optional[torch.Generator], n_epochs: int,
@@ -194,10 +251,53 @@ def _update(params, opt: torch.optim.Optimizer, batch: PPOBatch, agent,
     loss, stats = ppo_loss(params, agent, batch, cfg, ent_coeff)
     loss.backward()
     if cfg.max_grad_norm > 0:
-        clip_by_global_norm_([p.grad for p in params.parameters()
-                              if p.grad is not None], cfg.max_grad_norm)
+        _clip(params, cfg.max_grad_norm)
     opt.step()
     return {k: v.detach() for k, v in stats.items()}
+
+
+def _all_reduce_grads(params, group) -> None:
+    """One SUM all-reduce of every present gradient, through one flat
+    buffer.  Which gradients are present is the same on every rank: it
+    depends on the loss's graph, not on the rows."""
+    grads = [p.grad for p in params.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _update_grouped(params, opt: torch.optim.Optimizer, batch: PPOBatch,
+                    rows: Optional[torch.Tensor], count: int, agent,
+                    cfg: PPOConfig, ent_coeff, group
+                    ) -> Dict[str, torch.Tensor]:
+    """One data-parallel gradient step on the global minibatch of
+    ``count`` rows of which this rank holds ``rows`` (None: all of
+    ``batch``).  Returns this rank's share of the statistics."""
+    weight = 1.0
+    if rows is not None:
+        if rows.numel() == 0:
+            # no row of this minibatch is here: a zero-weighted row keeps
+            # the graph, and so the set of gradients, that of the others
+            rows, weight = torch.zeros(1, dtype=torch.long,
+                                       device=rows.device), 0.0
+        batch = batch.take(rows)
+    aux_denom = None
+    if cfg.aux_coeff > 0.0 and getattr(agent, "aux_fn", None) is not None:
+        aux_denom = (batch.aux_valid.sum() * weight).reshape(1)
+        dist.all_reduce(aux_denom, group=group)
+        aux_denom = torch.clamp(aux_denom[0], min=1.0)
+    opt.zero_grad(set_to_none=True)
+    loss, stats = ppo_loss(params, agent, batch, cfg, ent_coeff,
+                           count=count, aux_denom=aux_denom)
+    (loss * weight).backward()
+    _all_reduce_grads(params, group)
+    if cfg.max_grad_norm > 0:
+        _clip(params, cfg.max_grad_norm)
+    opt.step()
+    return {k: v.detach() * weight for k, v in stats.items()}
 
 
 def _mean_stats(stats: List[Dict[str, torch.Tensor]]
@@ -205,9 +305,49 @@ def _mean_stats(stats: List[Dict[str, torch.Tensor]]
     return {k: torch.stack([s[k] for s in stats]).mean() for k in stats[0]}
 
 
+def _train_step_grouped(params, opt, batch: PPOBatch, generator, agent,
+                        cfg: PPOConfig, ent_coeff, group, rollout_steps
+                        ) -> Dict[str, torch.Tensor]:
+    n_ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+    n_local = batch.obs.shape[0]
+    n = n_local * n_ranks
+    if cfg.n_epochs == 1 and cfg.n_minibatches == 1:
+        stats = _update_grouped(params, opt, batch, None, n, agent, cfg,
+                                ent_coeff, group)
+    else:
+        if rollout_steps is None or n_local % rollout_steps:
+            raise ValueError("train_step: a data-parallel shuffle needs "
+                             "rollout_steps, the T of the [T, B/n] rows")
+        b_local = n_local // rollout_steps
+        b = b_local * n_ranks
+        mb = max(1, n // cfg.n_minibatches)
+        src = dist.get_global_rank(group, 0)
+        epochs = []
+        for perm in permutations(generator, cfg.n_epochs, n,
+                                 batch.obs.device):
+            dist.broadcast(perm, src, group=group)
+            minibatches = []
+            for i in range(cfg.n_minibatches):
+                g = perm[i * mb:(i + 1) * mb]
+                t, col = g // b, g % b
+                mine = col // b_local == rank
+                rows = (t * b_local + col % b_local)[mine]
+                minibatches.append(_update_grouped(
+                    params, opt, batch, rows, mb, agent, cfg, ent_coeff,
+                    group))
+            epochs.append(_mean_stats(minibatches))
+        stats = _mean_stats(epochs)
+    names = sorted(stats)
+    total = torch.stack([stats[k] for k in names])
+    dist.all_reduce(total, group=group)
+    return dict(zip(names, total.unbind()))
+
+
 def train_step(params, opt: torch.optim.Optimizer, batch: PPOBatch,
                generator: Optional[torch.Generator], agent, cfg: PPOConfig,
-               ent_coeff=None) -> Dict[str, torch.Tensor]:
+               ent_coeff=None, group=None,
+               rollout_steps: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
     """``n_epochs`` x ``n_minibatches`` PPO updates on one batch.
 
     With one epoch of one minibatch the batch is used as it is (the update
@@ -215,7 +355,15 @@ def train_step(params, opt: torch.optim.Optimizer, batch: PPOBatch,
     ``[N, D]`` batch).  Otherwise each epoch shuffles the rows with a
     permutation drawn from ``generator`` and takes ``n // n_minibatches``
     rows per minibatch, dropping the rest.  The statistics are averaged
-    over the minibatches of each epoch, then over the epochs."""
+    over the minibatches of each epoch, then over the epochs.
+
+    ``group`` makes the update data-parallel (see the module's
+    docstring): ``batch`` is this rank's ``[T * B/n]`` rows and
+    ``rollout_steps`` their ``T``.  Each rank takes the rows it holds of
+    every minibatch, which waits for the device once per minibatch."""
+    if group is not None:
+        return _train_step_grouped(params, opt, batch, generator, agent,
+                                   cfg, ent_coeff, group, rollout_steps)
     if cfg.n_epochs == 1 and cfg.n_minibatches == 1:
         return _update(params, opt, batch, agent, cfg, ent_coeff)
     n = batch.obs.shape[0]

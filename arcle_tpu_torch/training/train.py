@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..envs import BatchedEnv, ResetOptions
@@ -89,7 +90,8 @@ def log_provenance(logger: MetricLogger, cfg: RunConfig, argv=None) -> None:
 class PPORun:
     """Everything a PPO run carries from one iteration to the next.  The
     generator (on the device) draws the env resets, the reset pools, the
-    actions and the minibatch shuffles."""
+    actions and the minibatch shuffles.  ``group``: the data-parallel
+    process group, or None for one process."""
 
     cfg: RunConfig
     env: BatchedEnv
@@ -99,12 +101,15 @@ class PPORun:
     generator: torch.Generator
     bs: BatchedState
     n_steps: int
+    group: Optional[object] = None
 
 
-def setup_ppo(cfg: RunConfig) -> PPORun:
+def setup_ppo(cfg: RunConfig, group=None) -> PPORun:
     """Env, policy and optimizer on ``cfg.device``.  The weights are drawn
     on the CPU from ``cfg.seed``, so a seed gives the same weights on
-    every device."""
+    every device and every rank.  With a data-parallel ``group`` the
+    ``cfg.env.n_envs`` envs are reset whole and this rank keeps its block
+    (:func:`parallel.mesh.shard_block`), with its own generator."""
     agent = build_agent(cfg)
     dev = resolve_device(cfg.device)
     env = BatchedEnv(table=make_table(cfg.env),
@@ -116,10 +121,13 @@ def setup_ppo(cfg: RunConfig) -> PPORun:
                      reset_pool=cfg.env.reset_pool)
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     bs = env.reset(generator, cfg.env.n_envs)
+    if group is not None:
+        from ..parallel.mesh import shard_block
+        bs = shard_block(bs, dist.get_world_size(group), dist.get_rank(group))
     params = agent.init_fn(torch.Generator().manual_seed(cfg.seed)).to(dev)
     return PPORun(cfg=cfg, env=env, agent=agent, params=params,
-                  opt=make_optimizer(params, cfg.ppo), generator=generator,
-                  bs=bs, n_steps=cfg.env.episode_limit or 100)
+                  opt=make_optimizer(params, cfg.ppo), generator=bs.generator,
+                  bs=bs, n_steps=cfg.env.episode_limit or 100, group=group)
 
 
 class _Marks:
@@ -153,7 +161,9 @@ def ppo_iteration(run: PPORun
     Returns the trajectory, the statistics (device tensors) and the marks
     before the rollout, between rollout and update, and after the update.
     The batch carries the aux targets when the loss uses them (an agent
-    with ``aux_fn`` and ``aux_coeff > 0``)."""
+    with ``aux_fn`` and ``aux_coeff > 0``).  Under ``run.group`` each rank
+    rolls out its own envs and the update and the statistics are the
+    data-parallel ones."""
     cfg = run.cfg
     marks = _Marks(run.bs.env.device)
     marks.mark()
@@ -161,14 +171,20 @@ def ppo_iteration(run: PPORun
                                    run.generator, run.n_steps, run.agent)
     include_aux = cfg.ppo.aux_coeff > 0.0 and run.agent.aux_fn is not None
     batch = batch_from_trajectory(traj, last_v, cfg.ppo,
-                                  include_aux=include_aux)
+                                  include_aux=include_aux, group=run.group)
     marks.mark()
     stats = train_step(run.params, run.opt, batch, run.generator, run.agent,
-                       cfg.ppo)
+                       cfg.ppo, group=run.group, rollout_steps=run.n_steps)
     marks.mark()
     stats["episode_reward_mean"] = traj.rewards.sum(0).mean()
     # success = a true termination before truncation
     stats["success_rate"] = traj.terminated.any(0).to(torch.float32).mean()
+    if run.group is not None:
+        names = ("episode_reward_mean", "success_rate")
+        both = torch.stack([stats[k] for k in names])
+        dist.all_reduce(both, group=run.group)
+        both = both / dist.get_world_size(run.group)
+        stats.update(zip(names, both.unbind()))
     return traj, stats, marks
 
 

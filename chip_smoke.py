@@ -109,16 +109,37 @@ Phases, each printing its numbers on a line of its own:
               launches per iteration, finite losses and aux losses, moved
               params, finished episodes; ms/iter, the rollout / update
               split, env-steps/s including the learner, peak memory; and
-              the evaluator on a checkpoint of the run.
+              the evaluator on a checkpoint of the run;
+11. dt     -- the Decision-Transformer policy at full width (DTConfig(): 4
+              layers, 8 heads, width 128) on 64 golden traces of 25 steps
+              (75 tokens) from ``dataset_from_traces``, card vs CPU with the
+              same weights: the float32 forward (TF32 off) within 1e-4 of
+              each output's largest magnitude, ``bc_loss`` within 1e-5
+              relative, one gradient within 1e-3 of each tensor's largest
+              entry plus 1e-6 of the largest of all; then ``train_bc`` for 50 steps on the card: finite
+              losses, the last below 0.9x the first; ms per step and peak
+              memory;
+12. parallel -- ``init_multihost`` at world size 1 on NCCL and
+              ``assert_all_processes_alive``; ``dryrun_multichip(1)`` with
+              ``GPTConfig()`` at full depth (3 step-kernel launches
+              asserted); the train configuration (4096 envs, T=100, the
+              full-width FCPolicy) through the data-parallel update under
+              the NCCL group, its params within 1e-5 of the single-process
+              ``train_step`` from the same start, then 3 DP iterations of
+              100 launches each (ms/iter beside the train phase's);
+              ``scaling_report`` at d=1 (NCCL), with the train phase's
+              update period, and its 2-process Gloo all-reduce check
+              (pred/meas printed, sums and times checked); the group is
+              destroyed at the end.
 
 It then prints a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no result.  Without CUDA it exits with code 2.
 ``--profile`` prints the device work per step of the engine loop, the PPO
 rollout, the gym adapter on the card (with its host split), the GPT
-forward, the E-MAML rollout and the answer-given rollout and minibatch
-update, beside their wall clock (``torch.profiler`` device events) and
-exits.
+forward, the E-MAML rollout, the answer-given rollout and minibatch
+update and the DT policy's behaviour-cloning step, beside their wall
+clock (``torch.profiler`` device events) and exits.
 """
 
 from __future__ import annotations
@@ -151,6 +172,14 @@ GYM_B = 1                      # the gym adapters step one env
 GYM_EPISODES, GYM_STEPS = 4, 60   # per env class, card vs native vs oracle
 GYM_RATE_STEPS = 2000          # adapter steps timed per backend
 MLP_BF16_TOL = 0.05            # of each output's largest magnitude
+DT_TRACES, DT_T = 64, 25       # golden traces; steps each (75 tokens)
+DT_STEPS = 50                  # train_bc's full-batch Adam steps
+DT_F32_TOL = 1e-4              # of each output's largest magnitude
+DT_LOSS_RTOL = 1e-5
+DT_GRAD_TOL = 1e-3             # as GPT_GRAD_TOL
+DRYRUN_T = 3                   # dryrun_multichip's rollout steps
+DP_PARAM_TOL = 1e-5            # DP update vs the single-process update
+DP_ITERS = 3                   # one warm-up, two timed
 
 
 def log(*a):
@@ -822,7 +851,8 @@ def phase_train(dev, card: str):
         f"learner, rollout {roll / ms:.1%} / update {1 - roll / ms:.1%}, "
         f"peak memory {peak_gb:.2f} GiB, {launches} kernel launches in "
         f"{iters} iterations ({card})")
-    return launches
+    update = sum(r["update_ms"] for r in timed) / len(timed)
+    return {"launches": launches, "ms": ms, "update_ms": update}
 
 
 def gpt_state(n: int):
@@ -1287,6 +1317,199 @@ def phase_answer_given(dev, card: str) -> dict:
     return dict(launches=launches, ms=ms, rollout_ms=roll, peak_gb=peak_gb)
 
 
+def phase_dt(dev, card: str) -> dict:
+    """The DT policy at full width on the card against the CPU, same
+    weights and golden-trace batch: the float32 forward, ``bc_loss`` and
+    one gradient; then ``train_bc`` on the card, ms per step and peak
+    memory."""
+    from arcle_tpu_torch.models import DTConfig, DTPolicy
+    from arcle_tpu_torch.training import dt_bc
+    from arcle_tpu_torch.validation import generate_golden_traces
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("dt: float32 matmuls are not full float32")
+    tasks, traces, infos = generate_golden_traces(n_traces=DT_TRACES,
+                                                  seed=11, n_steps=DT_T)
+    batch_c = dt_bc.dataset_from_traces(tasks, traces, infos, T_max=DT_T,
+                                        device="cpu")
+    batch_g = batch_c.to(dev)
+    pol_c = DTPolicy(DTConfig(), torch.Generator().manual_seed(0))
+    pol_g = copy.deepcopy(pol_c).to(dev)
+    with torch.no_grad():
+        out_c = pol_c(*batch_c[:4])
+        out_g = pol_g(*batch_g[:4])
+    worst = 0.0
+    for k, c in out_c.items():
+        worst = max(worst, _scaled_close(f"dt: {k}", out_g[k], c,
+                                         float(c.abs().max()), DT_F32_TOL))
+    losses = {}
+    for name, pol, batch in (("cuda", pol_g, batch_g),
+                             ("cpu", pol_c, batch_c)):
+        loss = dt_bc.bc_loss(pol, batch)
+        loss.backward()
+        losses[name] = float(loss.detach())
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    if not rel <= DT_LOSS_RTOL:
+        raise AssertionError(f"dt: bc_loss card {losses['cuda']} vs cpu "
+                             f"{losses['cpu']}")
+    # GPT_GRAD_TOL's rule: 1e-3 of each tensor's largest entry plus 1e-6 of
+    # the largest of all (the key bias's gradient cancels to ~0)
+    grads_g = dict(pol_g.named_parameters())
+    grads_c = {k: p.grad for k, p in pol_c.named_parameters()
+               if p.grad is not None}        # head_value: off the BC loss
+    if {k for k, p in grads_g.items() if p.grad is not None} != set(grads_c):
+        raise AssertionError("dt: gradients reach other parameters")
+    top = max(float(g.abs().max()) for g in grads_c.values())
+    worst_grad = 0.0
+    for k, c in grads_c.items():
+        scale = float(c.abs().max())
+        err = max_abs_diff(grads_g[k].grad.cpu(), c)
+        if not err <= DT_GRAD_TOL * scale + 1e-6 * top:
+            raise AssertionError(f"dt: grad {k} card vs cpu {err:.3e} > "
+                                 f"{DT_GRAD_TOL} x {scale:.3e} + 1e-6 x "
+                                 f"{top:.3e}")
+        worst_grad = max(worst_grad, err / (scale + 1e-3 * top))
+
+    # warm-up: in a fresh process on an H100 a cold train_bc took ~9.7 s
+    # for 50 steps whose warm steps take ~10 ms each; time warm steps
+    dt_bc.train_bc(DTPolicy(DTConfig()), batch_g, n_steps=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, bc = dt_bc.train_bc(DTPolicy(DTConfig()), batch_g,
+                           torch.Generator().manual_seed(0), n_steps=DT_STEPS,
+                           device=dev)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / DT_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    bc = bc.cpu()
+    if not bool(torch.isfinite(bc).all()) or \
+            not float(bc[-1]) < 0.9 * float(bc[0]):
+        raise AssertionError(f"dt: train_bc losses {bc[0]:.4f} -> "
+                             f"{bc[-1]:.4f} (not finite, or not below 0.9x)")
+    c = pol_c.cfg
+    B, T = batch_c.rtg.shape
+    log(f"dt: DTConfig() {c.n_layer}L/{c.n_head}H/{c.n_embd}E, {B} golden "
+        f"traces x T={T} ({3 * T} tokens), card vs cpu float32: outputs "
+        f"worst {worst:.3e} of each output's scale (tol {DT_F32_TOL}), "
+        f"bc_loss {losses['cuda']:.6f} vs {losses['cpu']:.6f} (rel "
+        f"{rel:.2e}, tol {DT_LOSS_RTOL}), gradient worst {worst_grad:.3e} "
+        f"of each tensor's scale (tol {DT_GRAD_TOL}, + 1e-6 of the largest "
+        f"gradient {top:.3e}), {len(grads_c)} tensors; TF32 off")
+    log(f"dt: train_bc {DT_STEPS} full-batch Adam steps on the card, loss "
+        f"{float(bc[0]):.4f} -> {float(bc[-1]):.4f}, {ms:.3f} ms/step "
+        f"(CUDA events), peak memory {peak_gb:.3f} GiB ({card})")
+    return {"ms_per_step": ms, "peak_gb": peak_gb}
+
+
+def phase_parallel(dev, card: str, train: dict) -> dict:
+    """The NCCL path at world size 1: init and liveness, the dry run at
+    full depth, the data-parallel update of the MLP train configuration
+    against the single-process one and its iterations, the 2-process Gloo
+    all-reduce check and the scaling report.  Launches by path."""
+    import torch.distributed as dist
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.parallel import (
+        assert_all_processes_alive, init_multihost)
+    from arcle_tpu_torch.parallel.dryrun import dryrun_multichip
+    from arcle_tpu_torch.parallel.launch import free_port
+    from arcle_tpu_torch.parallel.scaling import scaling_report
+    from arcle_tpu_torch.training import (
+        batch_from_trajectory, make_optimizer, rollout, train_step)
+    from arcle_tpu_torch.training.train import ppo_iteration, setup_ppo
+
+    t0 = time.perf_counter()
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=60.0,
+                   device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"parallel: backend {dist.get_backend()}")
+        assert_all_processes_alive(timeout_s=30.0)
+        init_s = time.perf_counter() - t0
+
+        step_kernel.LAUNCHES = 0
+        dry = dryrun_multichip(1, device="cuda", report=False)
+        dry_launches = step_kernel.LAUNCHES
+        if dry_launches != DRYRUN_T or dry["launches"] != DRYRUN_T:
+            raise AssertionError(f"parallel: the dry run launched the step "
+                                 f"kernel {dry_launches} times, not "
+                                 f"{DRYRUN_T}")
+
+        group = dist.group.WORLD
+        run = setup_ppo(train_config("cuda", B, 1), group=group)
+        cfg, T = run.cfg.ppo, run.n_steps
+        start = copy.deepcopy(run.params)
+        _, traj, last_v = rollout(run.env, run.bs, run.params, run.generator,
+                                  T, run.agent)
+        train_step(run.params, run.opt,
+                   batch_from_trajectory(traj, last_v, cfg, group=group),
+                   run.generator, run.agent, cfg, group=group,
+                   rollout_steps=T)
+        train_step(start, make_optimizer(start, cfg),
+                   batch_from_trajectory(traj, last_v, cfg), None, run.agent,
+                   cfg)
+        worst = 0.0
+        ref = start.state_dict()
+        for k, v in run.params.state_dict().items():
+            torch.testing.assert_close(v, ref[k], rtol=0, atol=DP_PARAM_TOL,
+                                       msg=f"parallel: param {k}, grouped vs "
+                                           "single-process update")
+            worst = max(worst, max_abs_diff(v, ref[k]))
+
+        rows = []
+        step_kernel.LAUNCHES = 0
+        for _ in range(DP_ITERS):
+            before = step_kernel.LAUNCHES
+            _, stats, marks = ppo_iteration(run)
+            n = step_kernel.LAUNCHES - before
+            if n != T:
+                raise AssertionError(f"parallel: a DP iteration launched the "
+                                     f"step kernel {n} times, not {T}")
+            loss = float(stats["total_loss"])
+            if not math.isfinite(loss):
+                raise AssertionError(f"parallel: DP loss {loss}")
+            rows.append(marks.ms())
+        dp_launches = step_kernel.LAUNCHES
+        timed = rows[1:]
+        roll = sum(r[0] for r in timed) / len(timed)
+        upd = sum(r[1] for r in timed) / len(timed)
+        log(f"parallel: NCCL world 1 init + liveness {init_s:.2f} s; dry run "
+            f"GPTConfig() {dry['envs_per_rank']} envs x T={DRYRUN_T}, loss "
+            f"{dry['loss']:.4f}, {dry_launches} launches")
+        log(f"parallel: DP update (NCCL group of 1) vs single-process "
+            f"train_step, {B} envs x T={T} FCPolicy: worst param diff "
+            f"{worst:.3e} (tol {DP_PARAM_TOL}); {len(timed)} timed DP "
+            f"iterations: {roll + upd:.1f} ms/iter = rollout {roll:.1f} + "
+            f"update {upd:.1f} ms (CUDA events), vs the train phase's "
+            f"{train['ms']:.1f} ms/iter with update {train['update_ms']:.1f} "
+            f"ms; {dp_launches} launches in {DP_ITERS} iterations ({card})")
+
+        rep = scaling_report(
+            (1,), update_period_s=train["update_ms"] / 1e3,
+            period_source=f"{card} (chip_smoke train phase, run_ppo update, "
+                          f"{B} envs x T=100)", device="cuda")
+        val = rep["collective_validation"]
+        if not (val["measured_s"] > 0 and min(val["probe_s"]) > 0):
+            raise AssertionError(f"parallel: all-reduce times {val}")
+        sweep = rep["sweep"][0]
+        if sweep["backend"] != "nccl":
+            raise AssertionError(f"parallel: scaling ran on {sweep}")
+        log(f"parallel: all-reduce check (2 Gloo processes on the card's "
+            f"host): pred/meas {val['ratio_pred_over_meas']:.3f} for "
+            f"{val['grad_mb']:.2f} MB (JAX's test band 0.3-3, not enforced); "
+            f"scaling d=1 NCCL {sweep['iter_s'] * 1e3:.1f} ms/iter; "
+            f"{time.perf_counter() - t0:.1f} s in this phase ({card})")
+    finally:
+        dist.destroy_process_group()
+    return {"dryrun": dry_launches, "dp_ppo": dp_launches,
+            "dp_ms": roll + upd, "dp_update_ms": upd,
+            "allreduce_ratio": val["ratio_pred_over_meas"]}
+
+
 def _event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1576,6 +1799,7 @@ def phase_profile(dev, card: str):
     phase_profile_gym(dev, card)
     phase_profile_gpt(dev, card)
     phase_profile_answer_given(dev, card)
+    phase_profile_dt(dev, card)
 
 
 def phase_profile_gym(dev, card: str):
@@ -1650,6 +1874,38 @@ def top_kernels(fn, k: int = 6) -> str:
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:k]
     return ", ".join(f"{n[:48]} {t / total:.1%}" for n, t in top)
+
+
+def phase_profile_dt(dev, card: str):
+    """Device work against wall clock of ``train_bc``'s step (the forward,
+    ``bc_loss``, the backward and the Adam step) on the ``dt`` phase's
+    batch, after a warm-up."""
+    from arcle_tpu_torch.models import DTConfig, DTPolicy
+    from arcle_tpu_torch.training import dt_bc
+    from arcle_tpu_torch.validation import generate_golden_traces
+
+    tasks, traces, infos = generate_golden_traces(n_traces=DT_TRACES,
+                                                  seed=11, n_steps=DT_T)
+    batch = dt_bc.dataset_from_traces(tasks, traces, infos, T_max=DT_T,
+                                      device=dev)
+    pol = DTPolicy(DTConfig(), torch.Generator().manual_seed(0)).to(dev)
+    opt = torch.optim.Adam(pol.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                           eps=1e-8)
+    steps = 10
+
+    def bc():
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            dt_bc.bc_loss(pol, batch).backward()
+            opt.step()
+    bc()                                                    # warm-up
+    wall = _event_ms(bc, 1) / steps
+    us, ops, _ = device_work(bc, steps, match=())
+    log(f"profile dt train_bc step ({batch.rtg.shape[0]} traces x "
+        f"T={DT_T}): {us:.1f} us of device work in {ops:.1f} device "
+        f"operations per step; {wall:.3f} ms per step (CUDA events), the "
+        f"card idle {max(0.0, 1 - us / 1e3 / wall):.1%} of it; top: "
+        f"{top_kernels(bc)} (torch.profiler device events; {card})")
 
 
 def phase_profile_answer_given(dev, card: str):
@@ -1788,7 +2044,8 @@ def main() -> int:
     gym_out = phase_gym(dev, card)
     launches = {"gym": gym_out["launches"], "main": phase_main(dev)}
     phase_learner(dev)
-    launches["train"] = phase_train(dev, card)
+    train = phase_train(dev, card)
+    launches["train"] = train["launches"]
     timing = phase_timing(dev, card)
     t30, tag = timing["30x30"], timing[f"5x5_color_B{AG_B}"]
     t1 = timing[f"30x30_B{GYM_B}"]
@@ -1798,6 +2055,9 @@ def main() -> int:
     launches["gpt_ppo"] = phase_gpt_ppo(dev, card)
     answer_given = phase_answer_given(dev, card)
     launches["answer_given"] = answer_given["launches"]
+    dt = phase_dt(dev, card)
+    par = phase_parallel(dev, card, train)
+    launches["dryrun"], launches["dp_ppo"] = par["dryrun"], par["dp_ppo"]
 
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
@@ -1839,7 +2099,12 @@ def main() -> int:
         "emaml_peak_gb": emaml["peak_gb"],
         "answer_given_ms_per_iteration": answer_given["ms"],
         "answer_given_rollout_ms": answer_given["rollout_ms"],
-        "answer_given_peak_gb": answer_given["peak_gb"]}
+        "answer_given_peak_gb": answer_given["peak_gb"],
+        "dt_ms_per_step": dt["ms_per_step"], "dt_peak_gb": dt["peak_gb"],
+        "dp_ppo_ms_per_iteration": par["dp_ms"],
+        "dp_ppo_update_ms": par["dp_update_ms"],
+        "train_ms_per_iteration": train["ms"],
+        "allreduce_pred_over_meas": par["allreduce_ratio"]}
     log(f"total: {time.perf_counter() - t_start:.1f} s (host clock)")
     print(json.dumps(kernels))
     print(card)

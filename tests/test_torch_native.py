@@ -273,3 +273,25 @@ def test_concurrent_first_builds(gxx, tmp_path):
         built = sorted(f.name for f in (tmp_path / f"build-{r}").iterdir())
         assert len(built) == 2 and all(f.endswith(".so") for f in built), \
             built
+
+
+def test_package_data_ships_every_source():
+    """A non-editable install carries every source the port builds at run
+    time: the step kernel's ``.cu`` and the native ``.cpp`` files."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+
+    from arcle_tpu_torch.ops import step_kernel
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "arcle_tpu_torch"]
+    pkg = Path(native.__file__).resolve().parents[1]
+    read = [step_kernel.SOURCE] + [native.CSRC / f"{name}.cpp"
+                                   for name in ("engine", "bake")]
+    for src in read + sorted(native.CSRC.iterdir()):
+        assert src.exists(), src
+        rel = src.resolve().relative_to(pkg).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), \
+            f"{rel} is not named by package-data {globs}"
