@@ -90,6 +90,20 @@ class Action:
         return dataclasses.replace(self, **kw)
 
 
+def make_action(selection, operation, device="cuda") -> Action:
+    """An action from a selection mask and an op index (arrays, tensors or
+    Python values): one ``[H, W]`` mask and one op make a batch of one, a
+    ``[B, H, W]`` stack and ``[B]`` ops a batch.  The mask is cast to int8
+    and the op to int32 as a numpy cast does (wrapping)."""
+    sel = torch.as_tensor(np.asarray(selection), device=device)
+    sel = sel.to(torch.int64).to(I8)
+    op = torch.as_tensor(np.asarray(operation), device=device)
+    op = op.to(torch.int64).to(I32)
+    if sel.ndim == 2:
+        sel = sel[None]
+    return Action(selection=sel, operation=op.reshape(sel.shape[0]))
+
+
 def _vec(v, batch: int, dtype, device) -> torch.Tensor:
     """A per-env ``[B]`` tensor from a scalar or a ``[B]`` tensor/array.
     Integers wrap into ``dtype`` the way a numpy/JAX cast does."""

@@ -8,8 +8,8 @@ the NoFill variant of agents/wrapper.py:61-65); ``ARCLE/*`` and
 """
 
 from .core import (
-    ResetOptions, reset, ResetPool, BatchedState, BatchedEnv,
-    make_reset_pool,
+    ResetOptions, reset, step, transition, ResetPool, BatchedState,
+    BatchedEnv, batched_reset, batched_step, make_reset_pool,
 )
 from .meta import augment_task, draw_augmentation, CustomO2ARCEnv
 from .rollout import random_bbox_actions, random_bbox_rollout
@@ -40,7 +40,8 @@ if gym is not None:
                                            max_episode_steps=_steps)
 
 __all__ = [
-    "reset", "ResetOptions", "ResetPool", "BatchedState", "BatchedEnv",
+    "reset", "step", "transition", "ResetOptions", "ResetPool",
+    "BatchedState", "BatchedEnv", "batched_reset", "batched_step",
     "make_reset_pool", "augment_task", "draw_augmentation",
     "random_bbox_actions", "random_bbox_rollout", "TorchEngine",
     "TorchARCEnvBase", "RawARCEnv", "ARCEnv", "O2ARCv2Env", "O2ARCNoFillEnv",

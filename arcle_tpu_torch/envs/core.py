@@ -23,7 +23,7 @@ from ..core.state import EnvState, Action, init_state, I8, I32, F32
 from ..loaders.loader import TaskBank
 from ..ops.table import (
     OpTable, dense_reward as _dense, pixel_reward as _pixel,
-    answers_match_any as _match,
+    answers_match_any as _match, step as _step, transition as _transition,
 )
 from ..ops.step_kernel import complete_step
 from .meta import augment_task, draw_augmentation
@@ -98,6 +98,10 @@ def reset(bank: TaskBank, generator: torch.Generator, opts: ResetOptions,
                                                      answer_dim, k, perm)
     return init_state(grid, dim, answer, answer_dim, max_trial=max_trial,
                       reset_on_submit=o.reset_on_submit.to(I8))
+
+
+step = _step
+transition = _transition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,3 +273,9 @@ def make_reset_pool(env: BatchedEnv, generator: torch.Generator, batch: int,
                      answer=fresh.answer, answer_dim=fresh.answer_dim,
                      counter=torch.zeros((batch,), dtype=I32,
                                          device=env.device))
+
+
+# the JAX package's free-function aliases (there for jit, with the env as
+# a pytree argument): ``batched_step(env, bs, action)``
+batched_reset = BatchedEnv.reset
+batched_step = BatchedEnv.step

@@ -210,6 +210,18 @@ def finish_flood(state: EnvState, action: Action, table: OpTable,
     return state.replace(grid=grid)
 
 
+def transition(state: EnvState, action: Action, table: OpTable) -> EnvState:
+    """Transition with every flood fill completed: the counterpart of the
+    reference's ``transition(state, action)`` hook (o2arcenv.py:149-151)
+    and of the JAX package's single-env ``transition`` (a single env is a
+    batch of one).  The fix-up runs only when an env is pending, which asks
+    the host."""
+    new, pending, _ = transition_deferred(state, action, table)
+    if bool(pending.any()):
+        new = finish_flood(new, action, table, pending)
+    return new
+
+
 def _finish_step(state: EnvState, s2: EnvState, op, match, table: OpTable):
     reward = ((op == table.submit_op) & match).to(F32)
     s2 = s2.replace(steps=state.steps + 1, last_action_op=op,

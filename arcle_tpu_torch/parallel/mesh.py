@@ -106,6 +106,76 @@ def shard_block(tree: Any, size: int, index: int) -> Any:
     return tree_map(cut, tree)
 
 
+@dataclasses.dataclass(frozen=True)
+class TaskLayout:
+    """How ``n_tasks`` meta-learning tasks of ``envs_per_task`` envs each
+    lie on the ranks of a data-parallel ``group`` (None: one process).
+    The env batch is task-major (env ``t*E + e``), so this rank's env rows
+    are block ``index`` of ``size`` (:func:`shard_block`) in either
+    layout:
+
+    * tasks whole (``split == 1``): the rank owns ``n_tasks / size``
+      consecutive tasks with all their envs;
+    * tasks split (``split > 1``): each task spans ``split`` consecutive
+      ranks, and the rank owns ``envs_per_task / split`` envs of one task.
+
+    ``task_groups`` holds, per task of this rank, the process group of the
+    ranks that share it (None where the task is whole)."""
+
+    n_tasks: int
+    envs_per_task: int
+    group: Any = None
+    size: int = 1
+    index: int = 0
+    split: int = 1
+    task_groups: Tuple[Any, ...] = ()
+
+    @property
+    def tasks(self) -> range:
+        """This rank's tasks (indices into all ``n_tasks``)."""
+        first = self.index * self.n_tasks // self.size
+        return range(first, first + max(1, self.n_tasks // self.size))
+
+    @property
+    def envs(self) -> int:
+        """This rank's envs of each of its tasks."""
+        return self.envs_per_task // self.split
+
+    @property
+    def rows(self) -> slice:
+        """This rank's rows of the ``n_tasks * envs_per_task`` env batch."""
+        per = self.n_tasks * self.envs_per_task // self.size
+        return slice(self.index * per, (self.index + 1) * per)
+
+
+def task_layout(n_tasks: int, envs_per_task: int, group=None) -> TaskLayout:
+    """The :class:`TaskLayout` of ``n_tasks`` tasks over ``group``'s ranks:
+    tasks whole where the ranks divide the tasks, tasks split where the
+    tasks divide the ranks and each task's envs divide over its ranks.
+    In the split layout every rank of the world calls ``dist.new_group``
+    once per task, in task order (``new_group`` is collective), so call
+    this once per run on every rank, not once per step."""
+    if group is None:
+        return TaskLayout(n_tasks, envs_per_task,
+                          task_groups=(None,) * n_tasks)
+    size, index = dist.get_world_size(group), dist.get_rank(group)
+    if size <= n_tasks and n_tasks % size == 0:
+        return TaskLayout(n_tasks, envs_per_task, group, size, index,
+                          task_groups=(None,) * (n_tasks // size))
+    split = size // n_tasks
+    if size > n_tasks and size % n_tasks == 0 and envs_per_task % split == 0:
+        ranks = [dist.get_global_rank(group, r) for r in range(size)]
+        groups = [dist.new_group(ranks[t * split:(t + 1) * split])
+                  for t in range(n_tasks)]
+        return TaskLayout(n_tasks, envs_per_task, group, size, index, split,
+                          (groups[index // split],))
+    raise ValueError(
+        f"task_layout: {n_tasks} tasks of {envs_per_task} envs do not lie "
+        f"on {size} ranks: the ranks must divide the tasks, or the tasks "
+        f"the ranks with each task's envs dividing over its "
+        f"{max(1, size // n_tasks)} ranks")
+
+
 def shard_leading(tree: Any, mesh: DeviceMesh, axis: str = "data") -> Any:
     """This rank's block of every leaf's leading axis over ``axis``; a
     leaf whose leading dimension the axis size does not divide stays whole

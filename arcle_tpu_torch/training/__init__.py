@@ -6,7 +6,8 @@ from .ppo import (
 from .agents import Agent, mlp_agent, gpt_agent
 from .emaml import (
     EMAMLConfig, EMAMLState, init_emaml, emaml_train_step,
-    make_chunked_train_step, sample_task_assignment, task_rollout,
+    make_chunked_train_step, make_meta_optimizer, sample_task_assignment,
+    task_rollout,
 )
 
 __all__ = [
@@ -15,5 +16,5 @@ __all__ = [
     "surrogate_loss", "make_optimizer", "train_step", "clip_by_global_norm_",
     "Agent", "mlp_agent", "gpt_agent", "EMAMLConfig", "EMAMLState",
     "init_emaml", "emaml_train_step", "make_chunked_train_step",
-    "sample_task_assignment", "task_rollout",
+    "make_meta_optimizer", "sample_task_assignment", "task_rollout",
 ]

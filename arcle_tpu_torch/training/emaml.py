@@ -33,17 +33,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.state import I32
 from ..envs.core import BatchedEnv, BatchedState
+from ..parallel.mesh import TaskLayout, task_layout
 from .agents import Agent
-from .ppo import PPOConfig, PPOBatch, batch_from_trajectory, ppo_loss, \
-    surrogate_loss
+from .ppo import PPOConfig, PPOBatch, _all_reduce_grads, \
+    batch_from_trajectory, ppo_loss, surrogate_loss
 from .rollout import Trajectory, rollout
 
 Params = Dict[str, torch.Tensor]
@@ -186,21 +189,39 @@ def _accumulated(fn: Callable, batch: PPOBatch, n: int,
     return _tree(lambda x: x / n, total)
 
 
+def _task_mean(grads: Params, task_group) -> Params:
+    """The mean over a split task's ranks of their gradients, each of its
+    rank's mean over an equal share of the task's rows: the gradient of
+    the task's mean, the same on every rank of the task.  One all-reduce
+    of a flat buffer, differentiable (second-order E-MAML differentiates
+    through it; ``dist.all_reduce`` would cut the graph silently)."""
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
+    flat = dist_nn.all_reduce(flat, group=task_group) \
+        / dist.get_world_size(task_group)
+    parts = flat.split([g.numel() for g in grads.values()])
+    return {k: part.view_as(g) for (k, g), part in zip(grads.items(), parts)}
+
+
 def _surrogate_grads(params: Params, batch: PPOBatch, cfg: EMAMLConfig,
-                     agent: Agent, create_graph: bool = False) -> Params:
+                     agent: Agent, create_graph: bool = False,
+                     task_group=None) -> Params:
     """d surrogate / d params, the mean over micro-batches; the graph of
-    each is kept only with ``create_graph``."""
-    return _accumulated(
+    each is kept only with ``create_graph``.  A split task's ``task_group``
+    makes it the gradient of the mean over all the task's rows."""
+    g = _accumulated(
         lambda mb: _grads(surrogate_loss(params, agent, mb, cfg.ppo), params,
                           create_graph), batch, cfg.n_micro, recompute=False)
+    return g if task_group is None else _task_mean(g, task_group)
 
 
 def _surrogate_and_kl(params: Params, batch: PPOBatch, cfg: EMAMLConfig,
-                      agent: Agent) -> Tuple[Params, torch.Tensor]:
+                      agent: Agent, task_group=None
+                      ) -> Tuple[Params, torch.Tensor]:
     """(d surrogate / d params, inner KL) from ONE evaluate forward per
     micro-batch: the ``kl_ladder_grads=False`` fast path, where the KL
     value rides on the surrogate's pass instead of paying its own
-    backward."""
+    backward.  Under a split task's ``task_group`` the gradient is the
+    task's and the KL this rank's share of it (:func:`_share`)."""
     def one(mb):
         lp, value, _ = agent.evaluate_fn(params, mb.obs, mb.actions)
         ratio = torch.exp(lp - mb.log_probs)
@@ -209,34 +230,50 @@ def _surrogate_and_kl(params: Params, batch: PPOBatch, cfg: EMAMLConfig,
         return (_grads(policy_loss + cfg.ppo.vf_coeff * vf_loss, params),
                 (mb.log_probs - lp).mean().detach())
 
-    return _accumulated(one, batch, cfg.n_micro, recompute=False)
+    g, kl = _accumulated(one, batch, cfg.n_micro, recompute=False)
+    if task_group is None:
+        return g, kl
+    return _task_mean(g, task_group), _share(kl, task_group)
+
+
+def _share(x, task_group):
+    """This rank's share of a split task's mean: its own mean over the
+    task's ranks (the shares of all the task's ranks sum to the task's
+    mean); ``x`` itself for a whole task.  Losses and KLs enter the meta
+    gradient as shares, so each of the task's rows counts once."""
+    if task_group is None:
+        return x
+    k = dist.get_world_size(task_group)
+    return _tree(lambda v: v / k, x)
 
 
 def _inner_update(params: Params, batch: PPOBatch, cfg: EMAMLConfig,
-                  agent: Agent) -> Params:
+                  agent: Agent, task_group=None) -> Params:
     """One inner SGD step on the unclipped surrogate, differentiable in
     ``params``; through the inner gradient too unless ``first_order``."""
     g = _surrogate_grads(params, batch, cfg, agent,
-                         create_graph=not cfg.first_order)
+                         create_graph=not cfg.first_order,
+                         task_group=task_group)
     return {k: p - cfg.inner_lr * g[k] for k, p in params.items()}
 
 
 def _adapt(params: Params, batch: PPOBatch, cfg: EMAMLConfig,
-           agent: Agent) -> Params:
+           agent: Agent, task_group=None) -> Params:
     """The inner SGD step as a value: no graph kept."""
     p = _leaves(params)
-    g = _surrogate_grads(p, batch, cfg, agent)
+    g = _surrogate_grads(p, batch, cfg, agent, task_group=task_group)
     return {k: (v - cfg.inner_lr * g[k]).detach() for k, v in p.items()}
 
 
 def _batch_kl(params: Params, batch: PPOBatch, cfg: EMAMLConfig,
-              agent: Agent) -> torch.Tensor:
-    """mean(old_logp - logp), the inner-step KL of the ladder."""
+              agent: Agent, task_group=None) -> torch.Tensor:
+    """mean(old_logp - logp), the inner-step KL of the ladder (this rank's
+    share of it under a split task's ``task_group``)."""
     def kl_of(mb):
         lp, _, _ = agent.evaluate_fn(params, mb.obs, mb.actions)
         return (mb.log_probs - lp).mean()
 
-    return _accumulated(kl_of, batch, cfg.n_micro)
+    return _share(_accumulated(kl_of, batch, cfg.n_micro), task_group)
 
 
 def _outer_ppo_loss(params: Params, batch: PPOBatch, cfg: EMAMLConfig,
@@ -290,30 +327,35 @@ def task_rollout(env: BatchedEnv, bs: BatchedState,
                  agent: Agent, cfg: EMAMLConfig, deterministic: bool
                  ) -> Tuple[BatchedState, Trajectory, torch.Tensor]:
     """``cfg.rollout_steps`` steps of every task's policy, with its own
-    params, on its own slice of ``envs_per_task`` envs; all the envs step
-    together, one ``BatchedEnv.step`` per rollout step.  Returns the
-    carry, the ``[steps, n_tasks * envs_per_task]`` trajectory and the
-    last values."""
+    params, on its own slice of the env batch (the tasks of
+    ``task_params``, equal slices in order); all the envs step together,
+    one ``BatchedEnv.step`` per rollout step.  Returns the carry, the
+    ``[steps, envs]`` trajectory and the last values."""
     return rollout(env, bs, task_params, generator, cfg.rollout_steps,
-                   _per_task(agent, cfg.n_tasks), deterministic)
+                   _per_task(agent, len(task_params)), deterministic)
 
 
-def task_batches(traj: Trajectory, last_v: torch.Tensor,
-                 cfg: EMAMLConfig) -> List[PPOBatch]:
-    """One PPO batch per task, advantages normalised within the task."""
-    E = cfg.envs_per_task
+def task_batches(traj: Trajectory, last_v: torch.Tensor, cfg: EMAMLConfig,
+                 layout: Optional[TaskLayout] = None) -> List[PPOBatch]:
+    """One PPO batch per task of ``layout``'s rank (every task without
+    one), advantages normalised within the task: over all its ranks where
+    the task is split."""
+    layout = layout or task_layout(cfg.n_tasks, cfg.envs_per_task)
+    E = layout.envs
     out = []
-    for t in range(cfg.n_tasks):
+    for t, task_group in enumerate(layout.task_groups):
         sl = slice(t * E, (t + 1) * E)
         out.append(batch_from_trajectory(
-            Trajectory(*(x[:, sl] for x in traj)), last_v[sl], cfg.ppo))
+            Trajectory(*(x[:, sl] for x in traj)), last_v[sl], cfg.ppo,
+            group=task_group))
     return out
 
 
-def task_rewards(traj: Trajectory, cfg: EMAMLConfig) -> torch.Tensor:
-    """The rewards as ``[n_tasks, steps, envs_per_task]``."""
+def task_rewards(traj: Trajectory, n_tasks: int) -> torch.Tensor:
+    """The rewards of ``n_tasks`` equal slices of envs as ``[n_tasks,
+    steps, envs]``."""
     S = traj.rewards.shape[0]
-    return traj.rewards.view(S, cfg.n_tasks, -1).transpose(0, 1)
+    return traj.rewards.view(S, n_tasks, -1).transpose(0, 1)
 
 
 def _stack_batches(batches: List[PPOBatch]) -> PPOBatch:
@@ -327,10 +369,13 @@ def _mean_stats(stats: List[Dict[str, torch.Tensor]]
             for k in stats[0]}
 
 
-def _apply_meta_grads(state: EMAMLState) -> None:
-    """One AdamW step.  A parameter the loss does not reach gets a zero
-    gradient, so AdamW moves and decays it as optax does (``step`` skips
-    parameters whose gradient is None)."""
+def _apply_meta_grads(state: EMAMLState, group=None) -> None:
+    """One AdamW step, on the sum of every rank's ``.grad`` under a
+    ``group``.  A parameter the loss does not reach gets a zero gradient,
+    so AdamW moves and decays it as optax does (``step`` skips parameters
+    whose gradient is None)."""
+    if group is not None:
+        _all_reduce_grads(state.params, group)
     for p in state.params.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -338,32 +383,58 @@ def _apply_meta_grads(state: EMAMLState) -> None:
     state.opt.zero_grad(set_to_none=True)
 
 
+def _layout(cfg: EMAMLConfig, group) -> TaskLayout:
+    """``group`` as the layout of ``cfg``'s tasks: a process group (or
+    None) is laid out by :func:`task_layout`, a :class:`TaskLayout` is
+    checked against ``cfg``."""
+    if not isinstance(group, TaskLayout):
+        return task_layout(cfg.n_tasks, cfg.envs_per_task, group)
+    if (group.n_tasks, group.envs_per_task) != (cfg.n_tasks,
+                                                cfg.envs_per_task):
+        raise ValueError(
+            f"a layout of {group.n_tasks} tasks x {group.envs_per_task} "
+            f"envs for a step of {cfg.n_tasks} x {cfg.envs_per_task}")
+    return group
+
+
 def emaml_train_step(state: EMAMLState, env: BatchedEnv, bs: BatchedState,
-                     agent: Agent, cfg: EMAMLConfig):
+                     agent: Agent, cfg: EMAMLConfig, group=None):
     """One full EMAML.training_step (emaml.py:346-527).
 
     ``env`` has per-env ``opts.prob_index`` pinned to the task assignment
     and ``adaptation=True``; batch = n_tasks * envs_per_task.  Updates
-    ``state`` in place and returns ``(state, bs, metrics)``."""
+    ``state`` in place and returns ``(state, bs, metrics)``.
+
+    ``group``: a data-parallel process group, or its
+    :class:`~..parallel.mesh.TaskLayout` (make it once per run where the
+    tasks are split: laying them out makes process groups).  ``env`` and
+    ``bs`` then hold this rank's rows of the env batch
+    (``layout.rows``); the rank adapts its tasks, every rank of a split
+    task holding the same adapted params; the meta gradient is summed
+    over the group, so every rank takes the same AdamW step and ends with
+    the same params, ``kl_coeffs`` and bookkeeping; every metric is that
+    of all tasks, except ``post_batch``, which holds this rank's rows."""
+    layout = _layout(cfg, group)
     T, gen = cfg.n_tasks, state.generator
+    tasks, task_groups = layout.tasks, layout.task_groups
 
     # ---- inner adaptation loop (emaml.py:367-401) ----
     task_params = [{k: v.detach() for k, v in
-                    meta_params(state.params).items()}] * T
+                    meta_params(state.params).items()}] * len(tasks)
     inner_batches, inner_rews = [], []
     for _ in range(cfg.inner_steps):
         bs, traj, last_v = task_rollout(env, bs, task_params, gen, agent,
                                         cfg, False)
-        batches = task_batches(traj, last_v, cfg)
-        task_params = [_adapt(p, b, cfg, agent)
-                       for p, b in zip(task_params, batches)]
+        batches = task_batches(traj, last_v, cfg, layout)
+        task_params = [_adapt(p, b, cfg, agent, tg)
+                       for p, b, tg in zip(task_params, batches, task_groups)]
         inner_batches.append(batches)
-        inner_rews.append(task_rewards(traj, cfg).mean(dim=(1, 2)))
+        inner_rews.append(task_rewards(traj, len(tasks)))
 
     # ---- post-adaptation rollouts, explore=False (emaml.py:410-423) ----
     bs, post_traj, post_last_v = task_rollout(env, bs, task_params, gen,
                                               agent, cfg, True)
-    post_batches = task_batches(post_traj, post_last_v, cfg)
+    post_batches = task_batches(post_traj, post_last_v, cfg, layout)
 
     # ---- meta loss: replay the inner chain differentiably (MAMLLoss);
     # one backward per task accumulates the gradient of the task mean ----
@@ -371,37 +442,96 @@ def emaml_train_step(state: EMAMLState, env: BatchedEnv, bs: BatchedState,
     for _ in range(cfg.maml_opt_steps):
         params = meta_params(state.params)
         losses, kls, stats = [], [], []
-        for t in range(T):
+        for i, tg in enumerate(task_groups):
             p, task_kls = params, []
             for step_batches in inner_batches:
                 # inner-step KL term (KLCoeffMixin ladder)
-                task_kls.append(_batch_kl(p, step_batches[t], cfg, agent))
-                p = _inner_update(p, step_batches[t], cfg, agent)
-            loss, st = _outer_ppo_loss(p, post_batches[t], cfg, agent)
+                task_kls.append(_batch_kl(p, step_batches[i], cfg, agent,
+                                          tg))
+                p = _inner_update(p, step_batches[i], cfg, agent, tg)
+            loss, st = _share(_outer_ppo_loss(p, post_batches[i], cfg,
+                                              agent), tg)
             task_kls = torch.stack(task_kls)
-            task_loss = loss + torch.sum(state.kl_coeffs[t] * task_kls)
+            task_loss = loss + torch.sum(state.kl_coeffs[tasks[i]]
+                                         * task_kls)
             (task_loss / T).backward()
             losses.append(task_loss.detach())
             kls.append(task_kls.detach())
             stats.append(st)
-        _apply_meta_grads(state)
+        _apply_meta_grads(state, layout.group)
     # the loss, KLs and outer stats of the last meta-opt step
     metrics = _finish_step(
-        state, env, cfg, torch.stack(losses).mean(), torch.stack(kls),
-        _mean_stats(stats), torch.stack(inner_rews),
-        task_rewards(post_traj, cfg), post_batches)
+        state, env, cfg, layout, torch.stack(losses), torch.stack(kls),
+        stats, inner_rews, task_rewards(post_traj, len(tasks)), post_batches)
     return state, bs, metrics
 
 
+def _gather(layout: TaskLayout, x: torch.Tensor) -> torch.Tensor:
+    """``x`` of every rank of the layout's group, stacked in rank order."""
+    parts = [torch.empty_like(x) for _ in range(layout.size)]
+    dist.all_gather(parts, x.contiguous(), group=layout.group)
+    return torch.stack(parts)
+
+
+def _all_tasks(layout: TaskLayout, x: torch.Tensor) -> torch.Tensor:
+    """``[tasks, ...]`` of this rank's tasks -> ``[n_tasks, split, ...]``
+    of all tasks, on every rank (``split`` parts of a split task, one of
+    a whole one)."""
+    x = _gather(layout, x)
+    return x.view(layout.n_tasks, layout.split, *x.shape[2:])
+
+
+def all_task_envs(layout: TaskLayout, x: torch.Tensor,
+                  env_dim: int) -> torch.Tensor:
+    """``x`` ``[tasks, ...]`` of this rank's tasks, their envs on axis
+    ``env_dim``, for all ``n_tasks`` tasks on every rank: a split task's
+    envs concatenated in rank order, as the unsharded step holds them."""
+    return _all_tasks(layout, x).movedim(1, env_dim).flatten(env_dim,
+                                                             env_dim + 1)
+
+
+def all_task_rows(layout: TaskLayout, batch: PPOBatch,
+                  steps: int) -> PPOBatch:
+    """A post-adaptation batch (``[tasks, steps * envs, ...]`` fields of
+    this rank's tasks and rows) for all tasks, on every rank."""
+    def full(x):
+        x = x.view(x.shape[0], steps, layout.envs, *x.shape[2:])
+        return all_task_envs(layout, x, 2).flatten(1, 2)
+
+    return PPOBatch(*(None if x is None else full(x) for x in batch))
+
+
 def _finish_step(state: EMAMLState, env: BatchedEnv, cfg: EMAMLConfig,
-                 loss, inner_kls, outer_stats, inner_rews, post_rewards,
-                 post_batches) -> Dict:
+                 layout: TaskLayout, task_losses, inner_kls, stats,
+                 inner_rews, post_rewards, post_batches) -> Dict:
     """KL-ladder update, success bookkeeping and the wandb-schema metrics
-    shared by the fused and chunked steps.  ``inner_kls`` is ``[n_tasks,
-    inner_steps]``, ``inner_rews`` ``[inner_steps, n_tasks]`` and
-    ``post_rewards`` the post-adaptation ``[n_tasks, steps, envs]``
-    rewards."""
-    T = cfg.n_tasks
+    shared by the fused and chunked steps.  Per task of this rank:
+    ``task_losses`` ``[tasks]``, ``inner_kls`` ``[tasks, inner_steps]``
+    and ``stats`` (a list of dicts) of the last meta-opt step, and the
+    rewards of each inner rollout (a list) and of the post-adaptation
+    rollout, ``[tasks, steps, envs]``.  Under a group they are gathered
+    for all ``n_tasks`` tasks first, so every rank computes the same."""
+    prob = env.opts.prob_index
+    task_ids = prob.view(len(layout.tasks), -1)[:, 0] if prob.ndim > 0 \
+        else torch.zeros((len(layout.tasks),), dtype=I32,
+                         device=task_losses.device)
+    if layout.group is not None:
+        names = sorted(stats[0])
+        shares = torch.cat([
+            task_losses[:, None], inner_kls,
+            torch.stack([torch.stack([s[n].detach() for s in stats])
+                         for n in names], dim=1)], dim=1)
+        shares = _all_tasks(layout, shares).sum(1)
+        task_ids = _all_tasks(layout, task_ids.to(I32))[:, 0]
+        rewards = all_task_envs(
+            layout, torch.stack(inner_rews + [post_rewards], dim=1), 3)
+        S = inner_kls.shape[1]
+        task_losses, inner_kls = shares[:, 0], shares[:, 1:1 + S]
+        stats = [dict(zip(names, row)) for row in shares[:, 1 + S:]]
+        inner_rews, post_rewards = list(rewards[:, :-1].unbind(1)), \
+            rewards[:, -1]
+    loss, outer_stats = task_losses.mean(), _mean_stats(stats)
+    inner_rews = torch.stack([r.mean(dim=(1, 2)) for r in inner_rews])
 
     # ---- inner KL coefficient ladder (emaml_policy.py:284-299) ----
     kc = state.kl_coeffs
@@ -412,9 +542,6 @@ def _finish_step(state: EMAMLState, env: BatchedEnv, cfg: EMAMLConfig,
     # ---- success bookkeeping (emaml.py:431-454, train.py:118-121) ----
     # a task counts as solved iff its post-adaptation batch holds a
     # positive reward (rewards.max() > 0 in the reference)
-    prob = env.opts.prob_index
-    task_ids = prob.view(T, -1)[:, 0] if prob.ndim > 0 else \
-        torch.zeros((T,), dtype=I32, device=kc.device)
     task_success = post_rewards.amax(dim=(1, 2)) > 0.0
     ids = task_ids.long()
     state.tasks_covered = state.tasks_covered.index_add(
@@ -445,8 +572,9 @@ def _finish_step(state: EMAMLState, env: BatchedEnv, cfg: EMAMLConfig,
         "once_successful": task_success,
         "num_covered_tasks": (state.tasks_covered > 0).sum(),
         "num_succeed_tasks": (state.tasks_succeeded > 0).sum(),
-        # the post-adaptation batch ([n_tasks, N, ...] fields), for the
-        # successful-batch pickles (train.py:126-128)
+        # the post-adaptation batch ([tasks, N, ...] fields of this rank's
+        # tasks and rows), for the successful-batch pickles
+        # (train.py:126-128)
         "post_batch": _stack_batches(post_batches),
     }
 
@@ -488,7 +616,7 @@ class _UnitTimes:
 
 
 def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
-                            profile: bool = False):
+                            profile: bool = False, group=None):
     """The decomposed FOMAML E-MAML step (the GPT path of train_gpt).
 
     With ``first_order=True`` the replayed chain's Jacobian ``d p_final /
@@ -507,24 +635,28 @@ def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
         PPO gradient and one AdamW step (``outer``).
 
     ``profile`` puts ``{unit: {"s": seconds, "n": calls}}`` in the
-    metrics as ``unit_times`` (CUDA events on a card).  Returns
-    ``step(state, env, bs) -> (state, bs, metrics)``, as
-    :func:`emaml_train_step`."""
+    metrics as ``unit_times`` (CUDA events on a card).  ``group`` (a
+    process group or its layout, laid out once here) makes the step
+    data-parallel as :func:`emaml_train_step`'s.  Returns ``step(state,
+    env, bs) -> (state, bs, metrics)``, as :func:`emaml_train_step`."""
     if not cfg.first_order:
         raise ValueError(
             "make_chunked_train_step requires first_order=True: the "
             "decomposed meta gradient relies on the FOMAML identity chain "
             "(second-order MAML needs the fused emaml_train_step)")
     T = cfg.n_tasks
+    layout = _layout(cfg, group)
+    tasks, task_groups = layout.tasks, layout.task_groups
 
     def rollout_unit(task_params, bs, gen, env, deterministic):
         bs, traj, last_v = task_rollout(env, bs, task_params, gen, agent,
                                         cfg, deterministic)
-        return bs, task_batches(traj, last_v, cfg), task_rewards(traj, cfg)
+        return bs, task_batches(traj, last_v, cfg, layout), \
+            task_rewards(traj, len(tasks))
 
     def update_unit(task_params, batches):
-        return [_adapt(p, b, cfg, agent)
-                for p, b in zip(task_params, batches)]
+        return [_adapt(p, b, cfg, agent, tg)
+                for p, b, tg in zip(task_params, batches, task_groups)]
 
     def chain_step(task_params, acc, batches, klc_i):
         """Replay one inner step per task; with ``kl_ladder_grads``
@@ -532,18 +664,19 @@ def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
         ``acc`` (None = zeros), else read the KL off the surrogate
         pass."""
         new_params, kls, new_acc = [], [], []
-        for t, (p0, b) in enumerate(zip(task_params, batches)):
+        for t, (p0, b, tg) in enumerate(zip(task_params, batches,
+                                            task_groups)):
             p = _leaves(p0)
             if cfg.kl_ladder_grads:
-                kl = _batch_kl(p, b, cfg, agent)
+                kl = _batch_kl(p, b, cfg, agent, tg)
                 gkl = _grads(kl, p)
-                g = _surrogate_grads(p, b, cfg, agent)
+                g = _surrogate_grads(p, b, cfg, agent, task_group=tg)
                 a = {k: klc_i[t] * v for k, v in gkl.items()} if acc is None \
                     else {k: acc[t][k] + klc_i[t] * v for k, v in gkl.items()}
                 new_acc.append(a)
                 kl = kl.detach()
             else:
-                g, kl = _surrogate_and_kl(p, b, cfg, agent)
+                g, kl = _surrogate_and_kl(p, b, cfg, agent, tg)
             new_params.append({k: (v - cfg.inner_lr * g[k]).detach()
                                for k, v in p.items()})
             kls.append(kl)
@@ -557,11 +690,13 @@ def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
 
     def outer_update(p_final, acc, post_batches, kl_pens, state):
         """Outer PPO gradient at the final params plus the accumulated
-        KL-ladder gradients, averaged over tasks; one AdamW step."""
+        KL-ladder gradients, averaged over tasks (summed over the group);
+        one AdamW step.  Returns the task losses and outer stats."""
         losses, stats, total = [], [], None
-        for t in range(T):
+        for t, tg in enumerate(task_groups):
             p = _leaves(p_final[t])
-            loss, st = _outer_ppo_loss(p, post_batches[t], cfg, agent)
+            loss, st = _share(_outer_ppo_loss(p, post_batches[t], cfg,
+                                              agent), tg)
             g = _grads(loss, p)
             if acc is not None:
                 g = _tree(torch.add, g, acc[t])
@@ -570,8 +705,8 @@ def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
             stats.append(st)
         for name, q in state.params.named_parameters():
             q.grad = total[name] / T
-        _apply_meta_grads(state)
-        return (torch.stack(losses) + kl_pens).mean(), _mean_stats(stats)
+        _apply_meta_grads(state, layout.group)
+        return torch.stack(losses) + kl_pens, stats
 
     def step(state: EMAMLState, env: BatchedEnv, bs: BatchedState):
         gen = state.generator
@@ -580,11 +715,12 @@ def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
         current = lambda: {k: v.detach() for k, v in
                            meta_params(state.params).items()}
         params0 = {k: v.clone() for k, v in current().items()}
+        kl_coeffs = lambda: state.kl_coeffs[tasks.start:tasks.stop]
 
         # ---- inner adaptation (emaml.py:367-401); with cache_chain this
         # pass IS the chain replay from params0, so its (acc, kls) serve
         # every meta-opt step ----
-        task_params = [params0] * T
+        task_params = [params0] * len(tasks)
         acc0, inner_batches, inner_rews, kls0 = None, [], [], []
         for i in range(cfg.inner_steps):
             bs, batches, rews = run("rollout", rollout_unit, task_params,
@@ -592,13 +728,13 @@ def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
             if cfg.cache_chain:
                 task_params, acc0, kl = run(
                     "update+chain", chain_step, task_params, acc0, batches,
-                    state.kl_coeffs[:, i])
+                    kl_coeffs()[:, i])
                 kls0.append(kl)
             else:
                 task_params = run("update", update_unit, task_params,
                                   batches)
                 inner_batches.append(batches)
-            inner_rews.append(rews.mean(dim=(1, 2)))
+            inner_rews.append(rews)
 
         # ---- post-adaptation rollouts, explore=False ----
         bs, post_batches, post_rewards = run(
@@ -611,19 +747,19 @@ def make_chunked_train_step(agent: Agent, cfg: EMAMLConfig,
                     "shift", shift_unit, task_params, current(), params0)
                 acc, inner_kls = acc0, torch.stack(kls0, dim=1)  # [T, S]
             else:
-                p, acc, kls = [current()] * T, None, []
+                p, acc, kls = [current()] * len(tasks), None, []
                 for i, tb in enumerate(inner_batches):
                     p, acc, kl = run("chain", chain_step, p, acc, tb,
-                                     state.kl_coeffs[:, i])
+                                     kl_coeffs()[:, i])
                     kls.append(kl)
                 inner_kls = torch.stack(kls, dim=1)           # [T, S]
-            kl_pens = torch.sum(state.kl_coeffs * inner_kls, dim=1)
-            loss, outer_stats = run("outer", outer_update, p, acc,
-                                    post_batches, kl_pens, state)
+            kl_pens = torch.sum(kl_coeffs() * inner_kls, dim=1)
+            task_losses, stats = run("outer", outer_update, p, acc,
+                                     post_batches, kl_pens, state)
 
-        metrics = _finish_step(state, env, cfg, loss, inner_kls,
-                               outer_stats, torch.stack(inner_rews),
-                               post_rewards, post_batches)
+        metrics = _finish_step(state, env, cfg, layout, task_losses,
+                               inner_kls, stats, inner_rews, post_rewards,
+                               post_batches)
         if profile:
             metrics["unit_times"] = times.read()
         return state, bs, metrics

@@ -36,12 +36,13 @@ from ..envs import BatchedEnv, ResetOptions
 from ..envs.core import BatchedState
 from ..models.gpt import GPTPolicy
 from ..models.mlp import FCPolicy
+from ..parallel.mesh import rank_generator, shard_block, task_layout
 from ..utils.checkpoint import Checkpointer
 from ..utils.config import RunConfig, EnvConfig, make_table, make_loader
 from ..utils.metrics import MetricLogger, Throughput
 from .agents import Agent, gpt_agent, mlp_agent
 from .emaml import (
-    EMAMLConfig, EMAMLState, emaml_train_step, init_emaml,
+    EMAMLConfig, EMAMLState, all_task_rows, emaml_train_step, init_emaml,
     make_chunked_train_step, sample_task_assignment,
 )
 from .ppo import batch_from_trajectory, make_optimizer, train_step
@@ -122,7 +123,6 @@ def setup_ppo(cfg: RunConfig, group=None) -> PPORun:
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     bs = env.reset(generator, cfg.env.n_envs)
     if group is not None:
-        from ..parallel.mesh import shard_block
         bs = shard_block(bs, dist.get_world_size(group), dist.get_rank(group))
     params = agent.init_fn(torch.Generator().manual_seed(cfg.seed)).to(dev)
     return PPORun(cfg=cfg, env=env, agent=agent, params=params,
@@ -235,14 +235,19 @@ def run_ppo(cfg: RunConfig, logger: MetricLogger, resume: bool = False,
     return run.params
 
 
-def _emaml_checkpoint(st: EMAMLState, generator: torch.Generator,
-                      i: int) -> Dict:
-    return {"params": st.params.state_dict(),
-            "opt_state": st.opt.state_dict(), "kl_coeffs": st.kl_coeffs,
-            "generator": generator.get_state(),
-            "state_generator": st.generator.get_state(),
-            "tasks_covered": st.tasks_covered,
-            "tasks_succeeded": st.tasks_succeeded, "iteration": i}
+def _emaml_checkpoint(st: EMAMLState, generator: torch.Generator, i: int,
+                      rank_generators: Optional[List] = None) -> Dict:
+    """The run's state after meta-iteration ``i``; under a group
+    ``rank_generators`` holds every rank's rollout generator state."""
+    out = {"params": st.params.state_dict(),
+           "opt_state": st.opt.state_dict(), "kl_coeffs": st.kl_coeffs,
+           "generator": generator.get_state(),
+           "state_generator": st.generator.get_state(),
+           "tasks_covered": st.tasks_covered,
+           "tasks_succeeded": st.tasks_succeeded, "iteration": i}
+    if rank_generators is not None:
+        out["state_generators"] = rank_generators
+    return out
 
 
 def _save_successful(cfg: RunConfig, i: int, metrics: Dict,
@@ -267,7 +272,7 @@ def _save_successful(cfg: RunConfig, i: int, metrics: Dict,
 
 def run_emaml(cfg: RunConfig, logger: MetricLogger, resume: bool = False,
               on_iteration: Optional[Callable] = None,
-              profile: bool = False) -> nn.Module:
+              profile: bool = False, group=None) -> nn.Module:
     """E-MAML for ``cfg.total_iterations`` meta-iterations; returns the
     policy holding the meta-parameters.
 
@@ -280,20 +285,33 @@ def run_emaml(cfg: RunConfig, logger: MetricLogger, resume: bool = False,
     (task draws and resets; rollouts), ``tasks_covered`` /
     ``tasks_succeeded`` and the iteration; ``resume`` continues after the
     latest.  ``on_iteration(i, state, metrics)`` is called after each
-    meta-iteration."""
+    meta-iteration.
+
+    With a data-parallel ``group`` the tasks are laid out over its ranks
+    (:func:`parallel.mesh.task_layout`): every rank draws the same
+    assignment (checked once against the first rank's), resets the whole
+    env batch and keeps its rows, with its own rollout generator
+    (:func:`parallel.mesh.rank_generator`), and runs the step under the
+    group; the group's first rank alone logs and writes the pickles and
+    checkpoints (every rank's rollout generator state included)."""
     ecfg = cfg.emaml
     agent = build_agent(cfg)
     dev = resolve_device(cfg.device)
     table = make_table(cfg.env)
     bank = make_loader(cfg.env).bank(device=dev)
     n_bank = int(bank.n_tasks)
+    layout = task_layout(ecfg.n_tasks, ecfg.envs_per_task, group)
+    lead = layout.index == 0
     st = init_emaml(agent, ecfg, cfg.seed, n_bank_tasks=n_bank, device=dev)
+    if layout.size > 1:
+        st.generator = rank_generator(st.generator, layout.index)
     generator = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     if ecfg.chunked:
-        step = make_chunked_train_step(agent, ecfg, profile=profile)
+        step = make_chunked_train_step(agent, ecfg, profile=profile,
+                                       group=layout)
     else:
         step = lambda st_, env_, bs_: emaml_train_step(st_, env_, bs_, agent,
-                                                        ecfg)
+                                                        ecfg, group=layout)
 
     ckpt = Checkpointer(cfg.checkpoint_dir)
     start = 0
@@ -306,15 +324,26 @@ def run_emaml(cfg: RunConfig, logger: MetricLogger, resume: bool = False,
             generator.set_state(restored["generator"])
             # the rollouts' own draws: without them a resumed run replays
             # iteration 0's exploration noise
-            st.generator.set_state(restored["state_generator"])
+            st.generator.set_state(
+                restored["state_generator"] if group is None
+                else restored["state_generators"][layout.index])
             st.tasks_covered = restored["tasks_covered"].to(dev)
             st.tasks_succeeded = restored["tasks_succeeded"].to(dev)
             start = int(restored["iteration"]) + 1
-            print(f"resumed from iteration {start - 1}", file=sys.stderr)
+            if lead:
+                print(f"resumed from iteration {start - 1}", file=sys.stderr)
     n_envs = ecfg.n_tasks * ecfg.envs_per_task
     t_iter = time.perf_counter()
     for i in range(start, cfg.total_iterations):
         assign = sample_task_assignment(generator, n_bank, ecfg)
+        if group is not None and i == start:
+            first = assign.clone()
+            dist.broadcast(first, dist.get_global_rank(group, 0),
+                           group=group)
+            if not torch.equal(first, assign):
+                raise RuntimeError(
+                    f"run_emaml: rank {layout.index} drew the tasks "
+                    f"{assign.tolist()}, the first rank {first.tolist()}")
         opts = ResetOptions.make(prob_index=assign, subprob_index=-1,
                                  adaptation=True, reset_on_submit=False,
                                  device=dev)
@@ -325,41 +354,60 @@ def run_emaml(cfg: RunConfig, logger: MetricLogger, resume: bool = False,
                          augment=cfg.env.augment, opts=opts,
                          reset_pool=cfg.env.reset_pool)
         bs = env.reset(generator, n_envs)
+        if layout.size > 1:
+            # this rank's rows of the state, the slot-major pool and the
+            # per-env options alike, so its envs reset onto its tasks
+            bs = shard_block(bs, layout.size, layout.index)
+            env = dataclasses.replace(env, opts=shard_block(
+                env.opts, layout.size, layout.index))
         st, bs, metrics = step(st, env, bs)
         post_batch = metrics.pop("post_batch")
-        # wandb schema keys (train.py:130-150)
-        logged = {
-            "total_loss": metrics["meta_loss"],
-            "outer_policy_loss": metrics["outer_policy_loss"],
-            "outer_vf_loss": metrics["outer_vf_loss"],
-            "outer_kl_loss": metrics["outer_kl_loss"],
-            "outer_total_loss": metrics["outer_total_loss"],
-            "adapt_eprewmax": metrics["adapt_reward_max"],
-            "adapt_eprewmean": metrics["adapt_reward_mean"],
-            "adapt_eprewmin": metrics["adapt_reward_min"],
-            "post_eprewmax": metrics["post_eprew_max"],
-            "post_eprewmean": metrics["post_eprew_mean"],
-            "post_eprewmin": metrics["post_eprew_min"],
-            "num_covered_tasks": metrics["num_covered_tasks"],
-            "num_succeed_tasks": metrics["num_succeed_tasks"],
-            "kl": metrics["inner_kl_mean"],
-            # per-task arrays, so a run log alone tells which tasks solved
-            "sampled_tasks": metrics["sampled_tasks"],
-            "once_successful": metrics["once_successful"].to(torch.int32),
-            "post_reward_per_task": metrics["post_reward_per_task"],
-        }
-        if "unit_times" in metrics:
-            logged["unit_times"] = metrics["unit_times"]
-        logger.log(i, logged)
-        # stderr heartbeat: liveness signal for supervise.py and humans
-        now = time.perf_counter()
-        print(f"[iter {i}] meta_loss={float(metrics['meta_loss']):.4f} "
-              f"post_eprew={float(metrics['post_eprew_mean']):.3f} "
-              f"({now - t_iter:.1f}s)", file=sys.stderr, flush=True)
-        t_iter = now
-        _save_successful(cfg, i, metrics, post_batch)
+        if group is not None and bool(metrics["once_successful"].any()):
+            post_batch = all_task_rows(layout, post_batch,
+                                       ecfg.rollout_steps)
+        if lead:
+            # wandb schema keys (train.py:130-150)
+            logged = {
+                "total_loss": metrics["meta_loss"],
+                "outer_policy_loss": metrics["outer_policy_loss"],
+                "outer_vf_loss": metrics["outer_vf_loss"],
+                "outer_kl_loss": metrics["outer_kl_loss"],
+                "outer_total_loss": metrics["outer_total_loss"],
+                "adapt_eprewmax": metrics["adapt_reward_max"],
+                "adapt_eprewmean": metrics["adapt_reward_mean"],
+                "adapt_eprewmin": metrics["adapt_reward_min"],
+                "post_eprewmax": metrics["post_eprew_max"],
+                "post_eprewmean": metrics["post_eprew_mean"],
+                "post_eprewmin": metrics["post_eprew_min"],
+                "num_covered_tasks": metrics["num_covered_tasks"],
+                "num_succeed_tasks": metrics["num_succeed_tasks"],
+                "kl": metrics["inner_kl_mean"],
+                # per-task arrays, so a run log alone tells which tasks
+                # solved
+                "sampled_tasks": metrics["sampled_tasks"],
+                "once_successful": metrics["once_successful"].to(
+                    torch.int32),
+                "post_reward_per_task": metrics["post_reward_per_task"],
+            }
+            if "unit_times" in metrics:
+                logged["unit_times"] = metrics["unit_times"]
+            logger.log(i, logged)
+            # stderr heartbeat: liveness signal for supervise.py and humans
+            now = time.perf_counter()
+            print(f"[iter {i}] meta_loss={float(metrics['meta_loss']):.4f} "
+                  f"post_eprew={float(metrics['post_eprew_mean']):.3f} "
+                  f"({now - t_iter:.1f}s)", file=sys.stderr, flush=True)
+            t_iter = now
+            _save_successful(cfg, i, metrics, post_batch)
         if cfg.checkpoint_every and i % cfg.checkpoint_every == 0:
-            ckpt.save(i, _emaml_checkpoint(st, generator, i))
+            rank_generators = None
+            if group is not None:
+                rank_generators = [None] * layout.size
+                dist.all_gather_object(rank_generators,
+                                       st.generator.get_state(), group=group)
+            if lead:
+                ckpt.save(i, _emaml_checkpoint(st, generator, i,
+                                               rank_generators))
         if on_iteration is not None:
             on_iteration(i, st, metrics)
     return st.params

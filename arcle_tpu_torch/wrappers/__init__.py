@@ -38,6 +38,11 @@ def point_action(x, y, op, H: int = 30, W: int = 30) -> Action:
     return Action(selection=point_selection(x, y, H, W), operation=_ops(op))
 
 
+# the JAX package vmaps its single-env constructors; these take batches
+batched_bbox_action = bbox_action
+batched_point_action = point_action
+
+
 # The 9-key observation projection of FilterO2ARC (agents/env.py:109-126).
 FILTER_O2ARC_KEYS = ("trials_remain", "grid", "grid_dim", "clip", "clip_dim",
                      "active", "object", "object_dim", "object_pos")
@@ -98,7 +103,8 @@ def unflatten_full(obs: torch.Tensor, H: int = 30, W: int = 30
 
 
 __all__ = [
-    "bbox_action", "point_action", "filter_obs", "flatten_obs",
+    "bbox_action", "point_action", "batched_bbox_action",
+    "batched_point_action", "filter_obs", "flatten_obs",
     "full_flatten_obs", "unflatten_full", "FULL_OBS_FIELDS", "FULL_OBS_DIM",
     "FILTER_O2ARC_KEYS",
 ]

@@ -70,7 +70,8 @@ Phases, each printing its numbers on a line of its own:
               step; then the 100-step loop through the kernel and through
               the plain step; and the kernel's device time at B=1 (the gym
               adapters), B=2 and B=64 at 30x30, the batches train_gpt's
-              E-MAML and PPO launch it at, and at B=1024 5x5 on the
+              E-MAML and PPO launch it at, at B=100 30x30 on train.py's
+              crop33 table (its E-MAML), and at B=1024 5x5 on the
               colour-only table, where train_answer_given launches it;
 7. gpt     -- the GPT policy at full width (GPTConfig(): 8 layers, 16
               heads, width 128, T=1837) on the card against the same
@@ -130,16 +131,33 @@ Phases, each printing its numbers on a line of its own:
               ``scaling_report`` at d=1 (NCCL), with the train phase's
               update period, and its 2-process Gloo all-reduce check
               (pred/meas printed, sums and times checked); the group is
-              destroyed at the end.
+              destroyed at the end;
+13. emaml-dp -- E-MAML under an NCCL group of one (its own init): (a)
+              train.py's default (``parse_config(["--device", "cuda"])``:
+              o2arc_crop33, EMAMLConfig() -- 10 tasks x 10 envs x 100
+              steps, 5 inner and 5 meta-opt steps, second order -- and the
+              full-width FCPolicy) through ``run_emaml(group=WORLD)``, one
+              warm-up and one timed meta-iteration: exactly 600 launches
+              per meta-iteration at B=100, finite meta loss, moved params,
+              the KL ladder rule; s per meta-iteration (host clock), the
+              rollout share (CUDA events around ``task_rollout``),
+              env-steps/s, peak memory; (b) the fused second-order step
+              under the group against the single-process step from the
+              same start on the same recorded rollouts: meta loss within
+              rtol 1e-4, every param within 1e-5, ladder and bookkeeping
+              equal; (c) train_gpt's chunked cached-chain step under the
+              group at the ``emaml`` phase's cut, one meta-iteration with
+              exactly 300 launches.
 
 It then prints a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no result.  Without CUDA it exits with code 2.
 ``--profile`` prints the device work per step of the engine loop, the PPO
 rollout, the gym adapter on the card (with its host split), the GPT
-forward, the E-MAML rollout, the answer-given rollout and minibatch
-update and the DT policy's behaviour-cloning step, beside their wall
-clock (``torch.profiler`` device events) and exits.
+forward, train_gpt's and train.py's E-MAML rollouts and a task's
+second-order meta term of train.py's E-MAML, the answer-given rollout and
+minibatch update and the DT policy's behaviour-cloning step, beside their
+wall clock (``torch.profiler`` device events) and exits.
 """
 
 from __future__ import annotations
@@ -180,6 +198,8 @@ DT_GRAD_TOL = 1e-3             # as GPT_GRAD_TOL
 DRYRUN_T = 3                   # dryrun_multichip's rollout steps
 DP_PARAM_TOL = 1e-5            # DP update vs the single-process update
 DP_ITERS = 3                   # one warm-up, two timed
+EMAML_DP_B = 100               # train.py's E-MAML: 10 tasks x 10 envs
+EMAML_DP_LOSS_RTOL = 1e-4      # grouped vs single-process meta loss
 
 
 def log(*a):
@@ -959,6 +979,17 @@ def phase_gpt(dev, card: str) -> dict:
     return ms
 
 
+def check_kl_ladder(what: str, e, before: torch.Tensor, kls: torch.Tensor,
+                    after: torch.Tensor) -> None:
+    """The KL-coefficient ladder rule (emaml_policy.py:284-299): x1.5
+    above twice the target, x0.5 below half of it."""
+    want = torch.where(kls > 2.0 * e.kl_target, before * 1.5, before)
+    want = torch.where(kls < 0.5 * e.kl_target, want * 0.5, want)
+    if not torch.equal(after.cpu(), want):
+        raise AssertionError(f"{what}: kl_coeffs {after} do not follow the "
+                             f"ladder from {before} at {kls}")
+
+
 def phase_emaml(dev, card: str) -> dict:
     """train_gpt's E-MAML envelope through ``run_emaml``, inner and meta
     steps cut; one warm-up and one timed meta-iteration."""
@@ -991,11 +1022,7 @@ def phase_emaml(dev, card: str) -> dict:
         if not math.isfinite(loss):
             raise AssertionError(f"emaml: meta-iteration {i} loss {loss}")
         kls = m["inner_kls"].cpu()
-        want = torch.where(kls > 2.0 * e.kl_target, kc[0] * 1.5, kc[0])
-        want = torch.where(kls < 0.5 * e.kl_target, want * 0.5, want)
-        if not torch.equal(st.kl_coeffs.cpu(), want):
-            raise AssertionError(f"emaml: kl_coeffs {st.kl_coeffs} do not "
-                                 f"follow the ladder from {kc[0]} at {kls}")
+        check_kl_ladder("emaml", e, kc[0], kls, st.kl_coeffs)
         kc[0] = st.kl_coeffs.cpu()
         ut = m["unit_times"]
         part = lambda *names: sum(ut[n]["s"] for n in names if n in ut)
@@ -1510,6 +1537,240 @@ def phase_parallel(dev, card: str, train: dict) -> dict:
             "allreduce_ratio": val["ratio_pred_over_meas"]}
 
 
+def _emaml_dp_train(card: str, group) -> dict:
+    """(a) train.py's default E-MAML through ``run_emaml(group=)``: one
+    warm-up and one timed meta-iteration, the rollouts timed with CUDA
+    events around ``task_rollout``."""
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.training import emaml, train
+    from arcle_tpu_torch.utils import MetricLogger
+
+    cfg, _ = train.parse_config(["--device", "cuda", "--iterations", "2"])
+    cfg = dataclasses.replace(cfg, checkpoint_every=0)
+    e = cfg.emaml
+    if (cfg.algo, cfg.model, cfg.env.family, e.first_order) != \
+            ("emaml", "mlp", "o2arc_crop33", False):
+        raise AssertionError(f"emaml-dp: train.py's default is {cfg}")
+    per_iter = e.rollout_steps * (e.inner_steps + 1)
+    n_envs = e.n_tasks * e.envs_per_task
+    init = train.build_agent(cfg).init_fn(
+        torch.Generator().manual_seed(cfg.seed))
+    rows, marks, t_prev = [], [], [0.0]
+    kc = [torch.full((e.n_tasks, e.inner_steps), 0.0005)]
+    real = emaml.task_rollout
+
+    def timed_rollout(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    def on_iteration(i, st, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        launches = step_kernel.LAUNCHES - sum(r["launches"] for r in rows)
+        if launches != per_iter:
+            raise AssertionError(f"emaml-dp: meta-iteration {i} launched the "
+                                 f"step kernel {launches} times, not "
+                                 f"{per_iter}")
+        loss = float(m["meta_loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"emaml-dp: meta-iteration {i} loss {loss}")
+        kls = m["inner_kls"].cpu()
+        check_kl_ladder("emaml-dp", e, kc[0], kls, st.kl_coeffs)
+        kc[0] = st.kl_coeffs.cpu()
+        rows.append(dict(loss=loss, launches=launches, s=now - t_prev[0],
+                         rollout=sum(a.elapsed_time(b) for a, b in marks)
+                         / 1e3, post=float(m["post_eprew_mean"])))
+        marks.clear()
+        t_prev[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    emaml.task_rollout = timed_rollout
+    try:
+        step_kernel.LAUNCHES = 0
+        t_prev[0] = time.perf_counter()
+        pol = train.run_emaml(cfg, MetricLogger(None),
+                              on_iteration=on_iteration, group=group)
+        torch.cuda.synchronize()
+        launches = step_kernel.LAUNCHES
+    finally:
+        emaml.task_rollout = real
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if len(rows) != cfg.total_iterations:
+        raise AssertionError(f"emaml-dp: {len(rows)} meta-iterations ran")
+    if all(torch.equal(a.cpu(), b) for a, b in
+           zip(pol.state_dict().values(), init.state_dict().values())):
+        raise AssertionError("emaml-dp: the params did not change")
+    env_steps = n_envs * per_iter
+    for i, r in enumerate(rows):
+        tag = " (warm-up, set-up included)" if i == 0 else ""
+        log(f"emaml-dp meta-iteration {i}{tag}: {r['s']:.3f} s (host "
+            f"clock), rollouts {r['rollout']:.3f} s "
+            f"({r['rollout'] / r['s']:.1%}; CUDA events around "
+            f"task_rollout), "
+            f"{env_steps / r['s']:,.1f} env-steps/s; meta loss "
+            f"{r['loss']:.5f}, post eprew {r['post']:.3f}; "
+            f"{r['launches']} kernel launches at B={n_envs} ({card})")
+    log(f"emaml-dp: train.py's default E-MAML under an NCCL group of one, "
+        f"FCPolicy hidden={pol.hidden}, {e.n_tasks} tasks x "
+        f"{e.envs_per_task} envs x {e.rollout_steps} steps, inner_steps "
+        f"{e.inner_steps}, maml_opt_steps {e.maml_opt_steps}, second "
+        f"order: "
+        f"{rows[-1]['s']:.3f} s per meta-iteration, peak memory "
+        f"{peak_gb:.2f} GiB, {per_iter} kernel launches per meta-iteration "
+        f"({card})")
+    return dict(launches=launches, per_iteration=per_iter, s=rows[-1]["s"],
+                rollout_share=rows[-1]["rollout"] / rows[-1]["s"],
+                env_steps_per_s=env_steps / rows[-1]["s"], peak_gb=peak_gb)
+
+
+def _emaml_dp_parity(dev, card: str, group) -> None:
+    """(b) the grouped fused step against the single-process one from the
+    same start, on the trajectories the single-process step rolled out."""
+    from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
+    from arcle_tpu_torch.parallel.mesh import task_layout
+    from arcle_tpu_torch.training import emaml, train
+    from arcle_tpu_torch.utils import make_loader, make_table
+
+    cfg, _ = train.parse_config(["--device", "cuda"])
+    e = cfg.emaml
+    agent = train.build_agent(cfg)
+    bank = make_loader(cfg.env).bank(device=dev)
+    n_bank = int(bank.n_tasks)
+    assign = emaml.sample_task_assignment(
+        torch.Generator(device=dev).manual_seed(5), n_bank, e)
+    env = BatchedEnv(table=make_table(cfg.env), bank=bank,
+                     max_trial=cfg.env.max_trial,
+                     episode_limit=cfg.env.episode_limit, auto_reset=True,
+                     dense_reward=cfg.env.dense_reward,
+                     augment=cfg.env.augment, reset_pool=cfg.env.reset_pool,
+                     opts=ResetOptions.make(prob_index=assign, device=dev))
+    bs = env.reset(torch.Generator(device=dev).manual_seed(6),
+                   e.n_tasks * e.envs_per_task)
+    states = [emaml.init_emaml(agent, e, cfg.seed, n_bank, dev)
+              for _ in range(2)]
+    recorded, replayed = [], []
+    real = emaml.task_rollout
+
+    def recording(*args):
+        res = real(*args)
+        recorded.append(res[1:])
+        return res
+
+    def replaying(env_, bs_, *args):
+        traj, last_v = recorded[len(replayed)]
+        replayed.append(True)
+        return bs_, traj, last_v
+
+    try:
+        emaml.task_rollout = recording
+        st1, _, m1 = emaml.emaml_train_step(states[0], env, bs, agent, e)
+        emaml.task_rollout = replaying
+        st2, _, m2 = emaml.emaml_train_step(
+            states[1], env, bs, agent, e,
+            group=task_layout(e.n_tasks, e.envs_per_task, group))
+    finally:
+        emaml.task_rollout = real
+    if not len(replayed) == len(recorded) == e.inner_steps + 1:
+        raise AssertionError(f"emaml-dp: {len(recorded)} rollouts recorded, "
+                             f"{len(replayed)} replayed")
+    l1, l2 = float(m1["meta_loss"]), float(m2["meta_loss"])
+    if not abs(l2 - l1) <= EMAML_DP_LOSS_RTOL * abs(l1):
+        raise AssertionError(f"emaml-dp: grouped meta loss {l2} vs "
+                             f"single-process {l1}")
+    worst, moved = 0.0, 0.0
+    ref = st1.params.state_dict()
+    for k, v in st2.params.state_dict().items():
+        torch.testing.assert_close(v, ref[k], rtol=0, atol=DP_PARAM_TOL,
+                                   msg=f"emaml-dp: param {k}, grouped vs "
+                                       "single-process step")
+        worst = max(worst, max_abs_diff(v, ref[k]))
+    for k in ("kl_coeffs", "tasks_covered", "tasks_succeeded"):
+        if not torch.equal(getattr(st1, k), getattr(st2, k)):
+            raise AssertionError(f"emaml-dp: {k} differ")
+    log(f"emaml-dp: the fused second-order step under the NCCL group vs "
+        f"the single-process step, train.py's default at full width, the "
+        f"same {len(recorded)} rollouts: meta loss {l2:.6f} vs {l1:.6f} "
+        f"(rtol {EMAML_DP_LOSS_RTOL}), worst param diff {worst:.3e} (tol "
+        f"{DP_PARAM_TOL}), no tensor left out; KL ladder and bookkeeping "
+        f"equal ({card})")
+
+
+def _emaml_dp_gpt(card: str, group) -> dict:
+    """(c) train_gpt's chunked, cached-chain E-MAML under the group,
+    ``phase_emaml``'s cut, one meta-iteration."""
+    from arcle_tpu_torch.ops import step_kernel
+    from arcle_tpu_torch.training import train_gpt
+    from arcle_tpu_torch.training.train import run_emaml
+    from arcle_tpu_torch.utils import MetricLogger
+
+    cfg, _ = train_gpt.parse_config([
+        "--device", "cuda", "--iterations", "1",
+        "--inner-steps", str(EMAML_INNER), "--meta-steps", str(EMAML_META)])
+    cfg = dataclasses.replace(cfg, checkpoint_every=0)
+    e = cfg.emaml
+    per_iter = e.rollout_steps * (e.inner_steps + 1)
+    rows = []
+
+    def on_iteration(i, st, m):
+        loss = float(m["meta_loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"emaml-dp gpt: loss {loss}")
+        rows.append(dict(loss=loss, units=m["unit_times"]))
+
+    torch.cuda.synchronize()
+    step_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    run_emaml(cfg, MetricLogger(None), on_iteration=on_iteration,
+              profile=True, group=group)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches = step_kernel.LAUNCHES
+    if launches != per_iter or len(rows) != 1:
+        raise AssertionError(f"emaml-dp gpt: {launches} step-kernel "
+                             f"launches in {len(rows)} meta-iterations, not "
+                             f"{per_iter}")
+    units = rows[0]["units"]
+    log(f"emaml-dp gpt: train_gpt's chunked cached-chain E-MAML under the "
+        f"NCCL group, inner / meta steps cut to {e.inner_steps} / "
+        f"{e.maml_opt_steps}: {s:.3f} s for one meta-iteration (host clock, "
+        f"set-up included), units " + ", ".join(
+            f"{k} {v['s']:.3f} s" for k, v in units.items())
+        + f" (CUDA events); meta loss {rows[0]['loss']:.5f}; {launches} "
+        f"kernel launches at B={e.n_tasks * e.envs_per_task} ({card})")
+    return dict(launches=launches, s=s)
+
+
+def phase_emaml_dp(dev, card: str) -> dict:
+    """E-MAML under an NCCL group of one: (a) train.py's default path, (b)
+    the grouped learner against the single-process one, (c) train_gpt's
+    chunked step under the group.  Launches by path."""
+    import torch.distributed as dist
+    from arcle_tpu_torch.parallel import init_multihost
+    from arcle_tpu_torch.parallel.launch import free_port
+
+    t0 = time.perf_counter()
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=60.0,
+                   device="cuda")
+    try:
+        group = dist.group.WORLD
+        if dist.get_backend(group) != "nccl":
+            raise AssertionError(f"emaml-dp: backend {dist.get_backend()}")
+        train_out = _emaml_dp_train(card, group)
+        _emaml_dp_parity(dev, card, group)
+        gpt_out = _emaml_dp_gpt(card, group)
+    finally:
+        dist.destroy_process_group()
+    log(f"emaml-dp: {time.perf_counter() - t0:.1f} s in this phase ({card})")
+    return dict(train_out, gpt_launches=gpt_out["launches"],
+                gpt_s=gpt_out["s"])
+
+
 def _event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1630,10 +1891,11 @@ def time_groups(st, acts, table, card: str) -> None:
 
 
 def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
-                answer_given: bool = False) -> dict:
+                answer_given: bool = False, crop33: bool = False) -> dict:
     """Device time, host time, bound and plain time of the kernel at
     ``batch`` envs with random bbox actions on an ``H x W`` bank: O2ARCv2
-    on synthetic tasks, or (``answer_given``) the colour-only table on the
+    on synthetic tasks (``crop33``: train.py's table, CropGrid at op 33
+    and max_trial=127), or (``answer_given``) the colour-only table on the
     answer-given suite's random pairs."""
     from arcle_tpu_torch.benchmarks import answer_given_env
     from arcle_tpu_torch.envs import BatchedEnv, random_bbox_actions
@@ -1646,12 +1908,14 @@ def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
         env = answer_given_env(n_tasks=4096, h=H, w=W, seed=3, device=dev)
         table, family = env.table, "colour-only table"
     else:
-        table, family = o2arc_table(max_trial=-1), "O2ARCv2"
+        table, family = (o2arc_table(max_trial=127, crop_at_33=True),
+                         "O2ARCv2 crop33") if crop33 else \
+            (o2arc_table(max_trial=-1), "O2ARCv2")
         loader = SyntheticLoader(16, seed=3, min_size=2,
                                  max_size=min(H, W, 12))
         env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
-                         max_trial=-1, episode_limit=100, auto_reset=True,
-                         reset_pool=8)
+                         max_trial=table.max_trial, episode_limit=100,
+                         auto_reset=True, reset_pool=8)
     st = env.reset(torch.Generator(device=dev).manual_seed(2), batch).env
     gen = torch.Generator(device=dev).manual_seed(3)
     acts = [random_bbox_actions(gen, batch, table.n_ops, H, W, dev)
@@ -1712,6 +1976,9 @@ def phase_timing(dev, card: str) -> dict:
     for batch in (GYM_B,) + GPT_BATCHES:
         by_geometry[f"30x30_B{batch}"] = time_kernel(dev, card, 30, 30,
                                                      batch)
+    # where train.py's E-MAML launches it: 10 tasks x 10 envs, crop33
+    by_geometry[f"30x30_crop33_B{EMAML_DP_B}"] = time_kernel(
+        dev, card, 30, 30, EMAML_DP_B, crop33=True)
     # where train_answer_given launches it: 1024 envs, 5x5, colour ops only
     by_geometry[f"5x5_color_B{AG_B}"] = time_kernel(dev, card, 5, 5, AG_B,
                                                     answer_given=True)
@@ -1798,6 +2065,7 @@ def phase_profile(dev, card: str):
         f"(torch.profiler device events; {card})")
     phase_profile_gym(dev, card)
     phase_profile_gpt(dev, card)
+    phase_profile_emaml(dev, card)
     phase_profile_answer_given(dev, card)
     phase_profile_dt(dev, card)
 
@@ -1955,10 +2223,6 @@ def phase_profile_gpt(dev, card: str):
     train_gpt's E-MAML rollout per step, beside its wall clock."""
     from arcle_tpu_torch.models import GPTConfig, GPTPolicy
     from arcle_tpu_torch.training import train_gpt
-    from arcle_tpu_torch.training.emaml import init_emaml, task_rollout
-    from arcle_tpu_torch.training.train import build_agent
-    from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
-    from arcle_tpu_torch.utils import make_loader, make_table
 
     pol = GPTPolicy(GPTConfig(), generator=torch.Generator().manual_seed(0))
     pol = pol.to(dev)
@@ -1981,6 +2245,19 @@ def phase_profile_gpt(dev, card: str):
             f"(torch.profiler device events; {card})")
 
     cfg, _ = train_gpt.parse_config(["--device", "cuda"])
+    profile_emaml_rollout(dev, card, cfg, "train_gpt")
+
+
+def profile_emaml_rollout(dev, card: str, cfg, label: str) -> dict:
+    """Device work per step of ``cfg``'s E-MAML rollout (all tasks' envs,
+    one forward pair per task per step), beside its wall clock.  Returns
+    the agent, the state, the env, the carry and the 10-step
+    trajectory."""
+    from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
+    from arcle_tpu_torch.training.emaml import init_emaml, task_rollout
+    from arcle_tpu_torch.training.train import build_agent
+    from arcle_tpu_torch.utils import make_loader, make_table
+
     e = cfg.emaml
     agent = build_agent(cfg)
     st = init_emaml(agent, e, 0, n_bank_tasks=cfg.env.n_synthetic_tasks,
@@ -1994,22 +2271,66 @@ def phase_profile_gpt(dev, card: str):
                      dense_reward=True, augment=True,
                      reset_pool=cfg.env.reset_pool,
                      opts=ResetOptions.make(prob_index=prob, device=dev))
-    bs = [env.reset(torch.Generator(device=dev).manual_seed(0),
-                    e.n_tasks * e.envs_per_task)]
+    out = dict(agent=agent, st=st, env=env, bs=env.reset(
+        torch.Generator(device=dev).manual_seed(0),
+        e.n_tasks * e.envs_per_task))
     params = [dict(st.params.named_parameters())] * e.n_tasks
     steps = 10
     short = dataclasses.replace(e, rollout_steps=steps)
 
     def roll():
-        bs[0], _, _ = task_rollout(env, bs[0], params, st.generator, agent,
-                                   short, False)
+        out["bs"], out["traj"], out["last_v"] = task_rollout(
+            env, out["bs"], params, st.generator, agent, short, False)
     roll()                                                  # warm-up
     wall = _event_ms(roll, 1) / steps
     us, ops, k_us = device_work(roll, steps)
-    log(f"profile E-MAML rollout (train_gpt, {e.n_tasks} tasks x "
+    log(f"profile E-MAML rollout ({label}, {e.n_tasks} tasks x "
         f"{e.envs_per_task} env): {us:.1f} us of device work in {ops:.1f} "
         f"device operations per step, step_kernel {k_us:.1f} us; "
         f"{wall:.3f} ms per step (CUDA events) (torch.profiler device "
+        f"events; {card})")
+    return out
+
+
+def phase_profile_emaml(dev, card: str):
+    """train.py's default E-MAML (10 tasks x 10 envs, the full-width MLP,
+    second order): the rollout per step, and one task's meta-loss term,
+    the second-order replay of its 5 inner steps on a 1000-row batch and
+    its backward, as the fused step runs it 50 times per
+    meta-iteration."""
+    from arcle_tpu_torch.training import emaml, train
+
+    cfg, _ = train.parse_config(["--device", "cuda"])
+    e = cfg.emaml
+    out = profile_emaml_rollout(dev, card, cfg, "train.py")
+    agent, st = out["agent"], out["st"]
+    # a task's batch of rollout_steps x envs_per_task rows: 10 rollouts of
+    # 10 steps of its envs
+    trajs = []
+    for _ in range(e.rollout_steps // 10):
+        out["bs"], traj, last_v = emaml.task_rollout(
+            out["env"], out["bs"], [dict(st.params.named_parameters())]
+            * e.n_tasks, st.generator, agent,
+            dataclasses.replace(e, rollout_steps=10), False)
+        trajs.append(traj)
+    traj = type(trajs[0])(*(torch.cat(x) for x in zip(*trajs)))
+    batch = emaml.task_batches(traj, last_v, e)[0]
+
+    def meta_term():
+        p, kls = emaml.meta_params(st.params), []
+        for _ in range(e.inner_steps):
+            kls.append(emaml._batch_kl(p, batch, e, agent))
+            p = emaml._inner_update(p, batch, e, agent)
+        loss, _ = emaml._outer_ppo_loss(p, batch, e, agent)
+        (loss + torch.sum(st.kl_coeffs[0] * torch.stack(kls))).backward()
+        st.opt.zero_grad(set_to_none=True)
+    meta_term()                                             # warm-up
+    wall = _event_ms(meta_term, 2)
+    us, ops, _ = device_work(meta_term, 1)
+    log(f"profile E-MAML meta term (train.py, one task, {e.inner_steps} "
+        f"second-order inner steps on {batch.obs.shape[0]} rows): "
+        f"{us / 1e3:.2f} ms of device work in {ops:.0f} device operations; "
+        f"{wall:.2f} ms per call (CUDA events) (torch.profiler device "
         f"events; {card})")
 
 
@@ -2058,6 +2379,10 @@ def main() -> int:
     dt = phase_dt(dev, card)
     par = phase_parallel(dev, card, train)
     launches["dryrun"], launches["dp_ppo"] = par["dryrun"], par["dp_ppo"]
+    edp = phase_emaml_dp(dev, card)
+    launches["emaml_dp"], launches["emaml_dp_gpt"] = edp["launches"], \
+        edp["gpt_launches"]
+    t100 = timing[f"30x30_crop33_B{EMAML_DP_B}"]
 
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
@@ -2091,6 +2416,16 @@ def main() -> int:
         "device_ms": t1["device_ms"], "host_us": t1["host_us"],
         "bound_ms": t1["bound_ms"], "bound_by": "bytes",
         "bytes_per_launch": t1["bytes_per_launch"],
+        "library_ms": None}, {
+        # the same kernel at the shape train.py's E-MAML launches it
+        "name": f"step_kernel@30x30_crop33_B{EMAML_DP_B}", "route": "cuda",
+        "source": "arcle_tpu_torch/csrc/step_kernel.cu",
+        "replaces": "arcle_tpu/ops/pallas_step.py:248",
+        "launches": launches["emaml_dp"], "max_abs_err": worst,
+        "ms": t100["ms"], "plain_ms": t100["plain_ms"],
+        "device_ms": t100["device_ms"], "host_us": t100["host_us"],
+        "bound_ms": t100["bound_ms"], "bound_by": "bytes",
+        "bytes_per_launch": t100["bytes_per_launch"],
         "library_ms": None}],
         "gym_steps_per_s": gym_out["rates"],
         "gym_golden_steps": gym_out["golden_steps"],
@@ -2104,7 +2439,12 @@ def main() -> int:
         "dp_ppo_ms_per_iteration": par["dp_ms"],
         "dp_ppo_update_ms": par["dp_update_ms"],
         "train_ms_per_iteration": train["ms"],
-        "allreduce_pred_over_meas": par["allreduce_ratio"]}
+        "allreduce_pred_over_meas": par["allreduce_ratio"],
+        "emaml_dp_s_per_meta_iteration": edp["s"],
+        "emaml_dp_rollout_share": edp["rollout_share"],
+        "emaml_dp_env_steps_per_s": edp["env_steps_per_s"],
+        "emaml_dp_peak_gb": edp["peak_gb"],
+        "emaml_dp_gpt_s_per_meta_iteration": edp["gpt_s"]}
     log(f"total: {time.perf_counter() - t_start:.1f} s (host clock)")
     print(json.dumps(kernels))
     print(card)

@@ -25,8 +25,8 @@ from arcle_tpu import ops as jops
 from arcle_tpu.ops.table import pixel_reward as jpixel_reward
 
 from arcle_tpu_torch import ops as tops
-from arcle_tpu_torch.core import Action, FIELDS, state_from_numpy, \
-    state_to_numpy
+from arcle_tpu_torch.core import Action, FIELDS, make_action, \
+    state_from_numpy, state_to_numpy
 from arcle_tpu_torch.testing import step_cases
 
 B = 64
@@ -246,3 +246,78 @@ def test_plain_step_adversarial(case):
                                   f"{case} {name} step {t}")
         names.append(name)
     assert "odd_selections" in names and "reset_on_submit" in names
+
+
+_vtransition = jax.jit(jax.vmap(jops.transition, in_axes=(0, 0, None)),
+                       static_argnums=2)
+
+
+def _serpentine_floods(jtable, rng):
+    """Flood fills seeded on a serpentine corridor: components far longer
+    than ``FLOOD_UNROLL`` sweeps reach."""
+    g = np.full((30, 30), 2, np.int8)
+    g[0::2, :] = 1
+    for i, r in enumerate(range(1, 29, 2)):
+        g[r, 29 if i % 2 == 0 else 0] = 1
+    st = as_numpy(fresh_states(jtable, 4, 3))
+    st["grid"] = np.broadcast_to(g, (B, 30, 30)).copy()
+    st["grid_dim"] = np.full((B, 2), 30, np.int8)
+    sels = np.zeros((B, 30, 30), np.int8)
+    sels[np.arange(B), 0, np.arange(B) % 30] = 1
+    return st, sels, rng.integers(10, 20, B)
+
+
+TRANSITION_CASES = {
+    "flood_unconverged": _serpentine_floods,
+    "color": lambda jt, rng: (
+        as_numpy(fresh_states(jt, 6, 3)),
+        np.stack([random_selection(rng) for _ in range(B)]),
+        rng.integers(0, 10, B)),
+    "object": lambda jt, rng: (
+        as_numpy(fresh_states(jt, 7, 3)),
+        np.stack([random_selection(rng) for _ in range(B)]),
+        rng.integers(20, 28, B)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRANSITION_CASES))
+def test_transition_matches_jax(case):
+    """``ops.transition`` (the flood completed inline) against the JAX
+    package's single-env ``transition`` over the batch, bit for bit; the
+    corridor floods are pending after the unrolled sweeps."""
+    jtable, ttable = TABLES["o2arc"](3)
+    rng = np.random.default_rng(31 + len(case))
+    st, sels, ops = TRANSITION_CASES[case](jtable, rng)
+    ops = ops.astype(np.int32)
+    tstate = state_from_numpy(st)
+    tact = make_action(sels, ops, device="cpu")
+    _, pending, _ = tops.transition_deferred(tstate, tact, ttable)
+    assert bool(pending.all()) == (case == "flood_unconverged")
+    want = _vtransition(to_jax(st), JAction(selection=jnp.asarray(sels),
+                                            operation=jnp.asarray(ops)),
+                        jtable)
+    got = tops.transition(tstate, tact, ttable)
+    assert_states_equal(want, got, case)
+    assert not np.array_equal(state_to_numpy(got)["grid"], st["grid"])
+    from arcle_tpu_torch import envs
+    assert envs.transition is tops.transition and envs.step is tops.step
+
+
+def test_make_action_matches_jax():
+    """``core.make_action`` casts as the JAX package's does (int8 mask,
+    int32 op, values wrapping); one mask makes a batch of one."""
+    from arcle_tpu.core import make_action as jmake_action
+    rng = np.random.default_rng(3)
+    sel = rng.integers(-300, 300, (30, 30))
+    op = np.int64(1 << 33 | 7)
+    ja, ta = jmake_action(sel, op), make_action(sel, op, device="cpu")
+    assert ta.selection.shape == (1, 30, 30) and ta.operation.shape == (1,)
+    np.testing.assert_array_equal(ta.selection[0].numpy(),
+                                  np.asarray(ja.selection))
+    assert ta.selection.dtype == torch.int8
+    assert int(ta.operation[0]) == int(ja.operation) == 7
+    sels, ops = rng.integers(0, 2, (3, 30, 30)), np.array([3, 14, 34])
+    tb = make_action(sels, ops, device="cpu")
+    assert tb.operation.dtype == torch.int32
+    np.testing.assert_array_equal(tb.selection.numpy(), sels)
+    np.testing.assert_array_equal(tb.operation.numpy(), ops)
