@@ -18,7 +18,8 @@ Phases, each printing its numbers on a line of its own:
               random pairs and on ARC-like tasks, and raw / arc at 12x20,
               5x7 and 16x64 (the instantiation with runtime H, W), and
               the gym adapters' O2ARC without flood ops (25 ops) and
-              crop33 at max_trial=127, each after
+              crop33 at max_trial=127, and bench_cuda's configurations'
+              raw at B=256 and arc at B=1024 (max_trial=-1), each after
               the adversarial cases of ``arcle_tpu_torch/testing.py``
               (corridor floods
               seeded at their far end, int8 selections other than 0/1,
@@ -71,8 +72,11 @@ Phases, each printing its numbers on a line of its own:
               the plain step; and the kernel's device time at B=1 (the gym
               adapters), B=2 and B=64 at 30x30, the batches train_gpt's
               E-MAML and PPO launch it at, at B=100 30x30 on train.py's
-              crop33 table (its E-MAML), and at B=1024 5x5 on the
-              colour-only table, where train_answer_given launches it;
+              crop33 table (its E-MAML), at B=1024 5x5 on the
+              colour-only table, where train_answer_given launches it,
+              and where bench_cuda's configurations launch it: the raw
+              table at B=256 and the arc table with random point actions
+              at B=1024, on its 400-task ``write_corpus`` bank;
 7. gpt     -- the GPT policy at full width (GPTConfig(): 8 layers, 16
               heads, width 128, T=1837) on the card against the same
               weights on the CPU, B=8 from an O2ARCv2 reset as in
@@ -147,7 +151,17 @@ Phases, each printing its numbers on a line of its own:
               rtol 1e-4, every param within 1e-5, ladder and bookkeeping
               equal; (c) train_gpt's chunked cached-chain step under the
               group at the ``emaml`` phase's cut, one meta-iteration with
-              exactly 300 launches.
+              exactly 300 launches;
+14. bench  -- ``bench_cuda.py`` at its defaults through ``bench_cuda.run``:
+              3,000 oracle steps (the single-env baseline), the engine at
+              4096 x 100 (warm-up, best of 5), the single-env adapter on
+              Mini-ARC (30,000 card and 30,000 native steps), raw@256 and
+              arc+point@1024 on the 3,200-pair corpus, the reset of 4096
+              envs on it, and the train loop (warm-up under the FLOP
+              counter, best of 3); every key, positive finite rates,
+              shares in [0, 100], ``bind`` as the measured busy share
+              gives it and exactly ``steps`` launches per rollout checked;
+              its JSON line printed.
 
 It then prints a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
@@ -166,7 +180,6 @@ import copy
 import dataclasses
 import json
 import math
-import subprocess
 import sys
 import time
 import types
@@ -204,14 +217,6 @@ EMAML_DP_LOSS_RTOL = 1e-4      # grouped vs single-process meta loss
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def fuzz_actions(gen, batch, n_ops, H, W, dev):
@@ -292,6 +297,7 @@ def check_adversarial(st, table, seed: int, what: str) -> float:
 def phase_parity(dev) -> float:
     from arcle_tpu_torch.benchmarks import (
         RandomPairLoader, color_table, small_arc_loader)
+    from arcle_tpu_torch.benchmarks.bench import CONFIG_ENVS
     from arcle_tpu_torch.envs import BatchedEnv, ResetOptions
     from arcle_tpu_torch.loaders import SyntheticLoader
     from arcle_tpu_torch.ops import o2arc_table, arc_table, raw_table
@@ -324,24 +330,32 @@ def phase_parity(dev) -> float:
              ("o2arc_nofill", o2arc_table(max_trial=3, no_fill=True), 30,
               30),
              ("o2arc_crop33_mt127", o2arc_table(max_trial=127,
-                                                crop_at_33=True), 30, 30)]
+                                                crop_at_33=True), 30, 30),
+             # bench_cuda's configurations: Raw at 256 envs and ARC at 1024
+             # (point actions; the fuzz draws single pixels among its
+             # selections), both at max_trial=-1
+             (f"raw_B{CONFIG_ENVS[0]}", raw_table(max_trial=-1), 30, 30,
+              None, CONFIG_ENVS[0]),
+             (f"arc_B{CONFIG_ENVS[1]}", arc_table(max_trial=-1), 30, 30,
+              None, CONFIG_ENVS[1])]
     for ti, (name, table, H, W, *given) in enumerate(cases):
-        loader = given[0] if given else SyntheticLoader(
+        loader = given[0] if given and given[0] else SyntheticLoader(
             16, seed=3, min_size=2, max_size=min(H, W, 12))
+        batch = given[1] if len(given) > 1 else B
         env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
                          max_trial=table.max_trial,
-                         opts=ResetOptions.make(reset_on_submit=ros,
+                         opts=ResetOptions.make(reset_on_submit=ros[:batch],
                                                 device=dev))
         gen.manual_seed(100 + ti)
-        st = env.reset(gen, B).env
+        st = env.reset(gen, batch).env
         worst = max(worst, check_adversarial(st, table, ti, name))
         steps = PARITY_STEPS if (H, W) == (30, 30) else PARITY_STEPS // 3
         for t in range(steps):
-            act = fuzz_actions(gen, B, table.n_ops, H, W, dev)
+            act = fuzz_actions(gen, batch, table.n_ops, H, W, dev)
             st, w = check_step(st, act, table, f"table {name} step {t}")
             worst = max(worst, w)
         torch.cuda.synchronize()
-        log(f"parity {name}: B={B} {H}x{W} steps={steps} bit-exact")
+        log(f"parity {name}: B={batch} {H}x{W} steps={steps} bit-exact")
     return worst
 
 
@@ -727,26 +741,10 @@ def phase_main(dev):
     return launches
 
 
-def train_config(device: str, n_envs: int, iterations: int):
-    """``bench.py::bench_train_loop``'s configuration: O2ARCv2 with CropGrid
-    at op 33, max_trial=127, episode_limit=100, dense reward,
-    augmentation, an 8-deep reset pool, SyntheticLoader(32, seed=7), the
-    full-width FCPolicy and PPOConfig() (one full-batch update)."""
-    from arcle_tpu_torch.utils import RunConfig, EnvConfig
-    return RunConfig(seed=0, algo="ppo", model="mlp",
-                     total_iterations=iterations, checkpoint_every=0,
-                     device=device,
-                     env=EnvConfig(family="o2arc_crop33", max_trial=127,
-                                   episode_limit=100, n_envs=n_envs,
-                                   dataset="synthetic", n_synthetic_tasks=32,
-                                   dense_reward=True, augment=True,
-                                   reset_pool=8),
-                     mlp_hidden=(1024, 1024, 512, 512, 256, 128))
-
-
 def phase_learner(dev):
     """The learner on the card against the learner on the CPU, full width,
     on one batch of 2048 rows from a short CUDA rollout."""
+    from arcle_tpu_torch.benchmarks.bench import train_config
     from arcle_tpu_torch.training import (
         rollout, batch_from_trajectory, ppo_loss, train_step, make_optimizer)
     from arcle_tpu_torch.training.train import setup_ppo
@@ -807,6 +805,7 @@ def phase_learner(dev):
 def phase_train(dev, card: str):
     """``run_ppo`` at ``bench_train_loop``'s configuration: one warm-up and
     three timed iterations."""
+    from arcle_tpu_torch.benchmarks.bench import train_config
     from arcle_tpu_torch.ops import step_kernel
     from arcle_tpu_torch.training.train import run_ppo, build_agent
     from arcle_tpu_torch.utils import MetricLogger
@@ -1216,6 +1215,7 @@ def mlp_bf16_check(dev, card: str) -> None:
     """One forward of the full-width FCPolicy with the bf16 torso on the
     card against the CPU, same weights, on observations of the train
     configuration's envs; the float32 torso beside it."""
+    from arcle_tpu_torch.benchmarks.bench import train_config
     from arcle_tpu_torch.models import FCPolicy
     from arcle_tpu_torch.training.train import setup_ppo
 
@@ -1439,6 +1439,7 @@ def phase_parallel(dev, card: str, train: dict) -> dict:
     against the single-process one and its iterations, the 2-process Gloo
     all-reduce check and the scaling report.  Launches by path."""
     import torch.distributed as dist
+    from arcle_tpu_torch.benchmarks.bench import train_config
     from arcle_tpu_torch.ops import step_kernel
     from arcle_tpu_torch.parallel import (
         assert_all_processes_alive, init_multihost)
@@ -1771,6 +1772,109 @@ def phase_emaml_dp(dev, card: str) -> dict:
                 gpt_s=gpt_out["s"])
 
 
+BENCH_KEYS = {
+    "": ("metric", "value", "unit", "vs_baseline", "baseline", "roofline",
+         "configs", "ppo_train_loop_steps_per_s", "ppo_train_loop",
+         "device"),
+    "configs": ("raw_miniarc_1env", "raw_miniarc_1env_native",
+                "raw_arc_256env", "arc_point_1024env",
+                "reset_4096env_3200pair_ms", "reset_4096env_eager_ms",
+                "corpus_pairs", "roofline"),
+    "roofline": ("device_kind", "power_limit_w",
+                 "analytic_bytes_per_env_step", "analytic_hbm_util_pct",
+                 "device_busy_pct", "engine", "bind", "rollout_ms",
+                 "launches"),
+    "ppo_train_loop": ("ms_per_iter", "rollout_ms", "update_ms", "dtype",
+                       "flops_per_env_step", "mfu_pct", "mfu_peak"),
+}
+SHARES = ("analytic_hbm_util_pct", "device_busy_pct", "mfu_pct")
+
+
+def check_bench(out: dict, args, card: str) -> None:
+    """``bench_cuda.run``'s result: every key, positive finite rates,
+    shares in [0, 100], ``bind`` as the busy share gives it, the kernel on
+    every engine path and the launches its rollouts must make."""
+    from arcle_tpu_torch.benchmarks import bench
+
+    def need(where: str, d: dict, keys) -> None:
+        missing = [k for k in keys if k not in d]
+        if missing:
+            raise AssertionError(f"bench: {where or 'result'} lacks "
+                                 f"{missing}")
+
+    need("", out, BENCH_KEYS[""])
+    need("configs", out["configs"], BENCH_KEYS["configs"])
+    need("ppo_train_loop", out["ppo_train_loop"], BENCH_KEYS["ppo_train_loop"])
+    cfg_steps = min(args.steps, 100)
+    utils = [("roofline", out["roofline"], args.steps, args.iters)] + [
+        (f"configs.roofline.{k}", u, cfg_steps, 2)
+        for k, u in out["configs"]["roofline"].items()]
+    rates = {"value": out["value"], "vs_baseline": out["vs_baseline"],
+             "ppo_train_loop_steps_per_s": out["ppo_train_loop_steps_per_s"],
+             **{f"configs.{k}": v for k, v in out["configs"].items()
+                if k != "roofline"}}
+    shares = {"ppo_train_loop.mfu_pct": out["ppo_train_loop"]["mfu_pct"]}
+    for where, u, steps, iters in utils:
+        need(where, u, BENCH_KEYS["roofline"])
+        shares.update({f"{where}.{k}": u[k] for k in SHARES if k in u})
+        if u["engine"] != "cuda":
+            raise AssertionError(f"bench: {where} ran the {u['engine']} step")
+        want = steps * (iters + 2) + min(steps, bench.BYTES_STEPS)
+        if u["launches"] != want:
+            raise AssertionError(f"bench: {where} launched the kernel "
+                                 f"{u['launches']} times, not {want}")
+        bind = "host" if u["device_busy_pct"] < bench.BUSY_DEVICE_PCT \
+            else "device"
+        if u["bind"] != bind:
+            raise AssertionError(f"bench: {where} bind {u['bind']} at "
+                                 f"{u['device_busy_pct']}% busy")
+    for k, v in rates.items():
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"bench: {k} = {v}")
+    for k, v in shares.items():
+        if not (isinstance(v, (int, float)) and 0 <= v <= 100):
+            raise AssertionError(f"bench: share {k} = {v}")
+    if out["device"]["name"] != card.rsplit(",", 1)[0] or \
+            not out["device"]["power_limit_w"] > 0:
+        raise AssertionError(f"bench: device {out['device']}, not {card}")
+
+
+def phase_bench(dev, card: str) -> dict:
+    """``bench_cuda.py`` at its defaults through ``bench_cuda.run``: the
+    engine (4096 x 100, best of 5), the reference's single-env baseline
+    (3,000 oracle steps), BASELINE's configurations and the train loop;
+    the JSON line checked and printed, and the kernel's launches on the
+    path counted."""
+    import bench_cuda
+    from arcle_tpu_torch.benchmarks import bench
+    from arcle_tpu_torch.ops import step_kernel
+
+    args = bench_cuda.parse_args([])
+    step_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = bench_cuda.run(args)
+    seconds = time.perf_counter() - t0
+    launches = step_kernel.LAUNCHES
+    check_bench(out, args, card)
+    # one per card step of the single-env adapter, one per train-loop step
+    # (a warm-up and 3 timed iterations) and the engine rollouts' own
+    want = bench.ADAPTER_STEPS + 4 * args.steps + out["roofline"][
+        "launches"] + sum(u["launches"] for u in
+                          out["configs"]["roofline"].values())
+    if launches != want:
+        raise AssertionError(f"bench: {launches} kernel launches, not {want}")
+    print(json.dumps(out), flush=True)
+    log(f"bench: bench_cuda.py's defaults in {seconds:.1f} s (host clock), "
+        f"{launches} kernel launches; engine {out['value']:,} env-steps/s "
+        f"({out['roofline']['bind']} bound, the card busy "
+        f"{out['roofline']['device_busy_pct']}%), train loop "
+        f"{out['ppo_train_loop_steps_per_s']:,} env-steps/s, mfu "
+        f"{out['ppo_train_loop']['mfu_pct']}% of "
+        f"{out['ppo_train_loop']['mfu_peak']} ({card})")
+    return {"launches": launches, "configs": out["configs"]["roofline"],
+            "seconds": seconds}
+
+
 def _event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1783,47 +1887,11 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
-SCALAR_BYTES = 29 + 30        # per env: dims, flags, counters in and out
-
-
-def step_bytes(st, act, table) -> int:
-    """The bytes one step of these inputs must move: each grid the op
-    reads (the copied-through fields included) once, the 6 output grids
-    once, and the per-env scalars.  Grids an op overwrites whole, or that
-    it does not consult for this env's selection and flags, are not
-    counted: the grid under ResizeGrid with a selection and under a
-    re-initialising Submit, the input except where Copy, CopyFromInput or
-    a re-initialising Submit takes it."""
-    from arcle_tpu_torch.ops.groups import G, precompute_selection
-    from arcle_tpu_torch.ops.table import lookup
-    n, H, W = st.grid.shape
-    _, grp, par, rs = lookup(act, table)
-    pre = precompute_selection(act.selection)
-    isin = lambda *gs: torch.isin(grp, torch.tensor(gs, device=grp.device))
-    active0 = (st.active != 0) & ~rs
-    obj_ok = (grp == G.OBJECT) & (pre.any | active0)
-    stored = obj_ok & ~pre.any              # a stored object moves on
-    from_input = par == 0
-    dim = torch.where(from_input.view(-1, 1), st.input_dim,
-                      st.grid_dim).to(torch.int32)
-    copy_ok = (grp == G.COPY) & pre.any & \
-        ~((pre.rmax > dim[:, 0]) | (pre.cmax > dim[:, 1]))
-    sub_ros = (grp == G.SUBMIT) & (st.trials_remain != 0) & \
-        (st.reset_on_submit != 0)
-    keep = ~obj_ok & ~sub_ros
-    i64 = lambda m: m.to(torch.int64)
-    grids = (i64(~isin(G.COPY_FROM_INPUT, G.RESET_GRID) & ~sub_ros
-                 & ~((grp == G.RESIZE_GRID) & pre.any))           # grid
-             + i64(isin(G.COLOR, G.FLOOD, G.OBJECT, G.COPY, G.PASTE,
-                        G.RESIZE_GRID, G.CROP_GRID))              # selection
-             + i64(keep & ~rs)                                    # selected
-             + 3 * i64(keep | stored)       # object, object_sel, background
-             + i64(~copy_ok & ~sub_ros)                           # clip
-             + i64((copy_ok & from_input) | (grp == G.COPY_FROM_INPUT)
-                   | sub_ros)                                     # input
-             + i64(grp == G.SUBMIT))                              # answer
-    return int(grids.sum()) * H * W + n * (6 * H * W + SCALAR_BYTES)
+def hbm_bytes_per_s() -> float:
+    """The H100 SXM's HBM rate (NVIDIA's data sheet), the bound's
+    denominator."""
+    from arcle_tpu_torch.benchmarks.roofline import H100_SXM
+    return H100_SXM["hbm_gbps"] * 1e9
 
 
 def graph_device_ms(step, st, acts, table, chain: int = 20,
@@ -1862,10 +1930,11 @@ def host_us(step, st, acts, table, calls: int = 200) -> float:
 
 def chain_bytes(step, st, acts, table, chain: int = 20) -> float:
     """Mean bytes per launch over the chain that ``graph_device_ms`` times."""
+    from arcle_tpu_torch.benchmarks.roofline import step_kernel_bytes
     total, s = 0, st
     for k in range(chain):
         a = acts[k % len(acts)]
-        total += step_bytes(s, a, table)
+        total += step_kernel_bytes(s, a, table)
         s = step(s, a, table)[0]
     return total / chain
 
@@ -1885,20 +1954,23 @@ def time_groups(st, acts, table, card: str) -> None:
         nbytes = chain_bytes(cuda_step_deferred, st, one, table)
         ms = graph_device_ms(cuda_step_deferred, st, one, table)
         parts.append(f"{name} {ms * 1e3:.2f} (bound "
-                     f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f})")
+                     f"{nbytes / hbm_bytes_per_s() * 1e6:.2f})")
     log(f"timing kernel by op, B={B} 30x30, device us per launch: "
         f"{', '.join(parts)} ({card})")
 
 
 def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
-                answer_given: bool = False, crop33: bool = False) -> dict:
+                answer_given: bool = False, crop33: bool = False,
+                table=None, bank=None, point: bool = False) -> dict:
     """Device time, host time, bound and plain time of the kernel at
-    ``batch`` envs with random bbox actions on an ``H x W`` bank: O2ARCv2
-    on synthetic tasks (``crop33``: train.py's table, CropGrid at op 33
-    and max_trial=127), or (``answer_given``) the colour-only table on the
-    answer-given suite's random pairs."""
+    ``batch`` envs with random bbox actions (``point``: one pixel) on an
+    ``H x W`` bank: O2ARCv2 on synthetic tasks (``crop33``: train.py's
+    table, CropGrid at op 33 and max_trial=127), ``table`` on ``bank``, or
+    (``answer_given``) the colour-only table on the answer-given suite's
+    random pairs."""
     from arcle_tpu_torch.benchmarks import answer_given_env
     from arcle_tpu_torch.envs import BatchedEnv, random_bbox_actions
+    from arcle_tpu_torch.envs.rollout import random_point_actions
     from arcle_tpu_torch.loaders import SyntheticLoader
     from arcle_tpu_torch.ops import finish_flood, o2arc_table
     from arcle_tpu_torch.ops.step_kernel import (
@@ -1908,18 +1980,23 @@ def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
         env = answer_given_env(n_tasks=4096, h=H, w=W, seed=3, device=dev)
         table, family = env.table, "colour-only table"
     else:
-        table, family = (o2arc_table(max_trial=127, crop_at_33=True),
-                         "O2ARCv2 crop33") if crop33 else \
-            (o2arc_table(max_trial=-1), "O2ARCv2")
-        loader = SyntheticLoader(16, seed=3, min_size=2,
-                                 max_size=min(H, W, 12))
-        env = BatchedEnv(table=table, bank=loader.bank(H, W, device=dev),
+        if table is not None:
+            family = f"{table.name} table"
+        else:
+            table, family = (o2arc_table(max_trial=127, crop_at_33=True),
+                             "O2ARCv2 crop33") if crop33 else \
+                (o2arc_table(max_trial=-1), "O2ARCv2")
+        if bank is None:
+            bank = SyntheticLoader(16, seed=3, min_size=2,
+                                   max_size=min(H, W, 12)).bank(
+                                       H, W, device=dev)
+        env = BatchedEnv(table=table, bank=bank,
                          max_trial=table.max_trial, episode_limit=100,
                          auto_reset=True, reset_pool=8)
     st = env.reset(torch.Generator(device=dev).manual_seed(2), batch).env
     gen = torch.Generator(device=dev).manual_seed(3)
-    acts = [random_bbox_actions(gen, batch, table.n_ops, H, W, dev)
-            for _ in range(8)]
+    draw = random_point_actions if point else random_bbox_actions
+    acts = [draw(gen, batch, table.n_ops, H, W, dev) for _ in range(8)]
 
     def plain(s, a, t):
         s2, r, term, pend = plain_step_deferred(s, a, t)
@@ -1938,7 +2015,7 @@ def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
         i[0] += 1
 
     nbytes = chain_bytes(cuda_step_deferred, st, acts, table)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = nbytes / hbm_bytes_per_s() * 1e3
     dev_ms = [graph_device_ms(cuda_step_deferred, st, acts, table)
               for _ in range(2)]
     h_us = [host_us(cuda_step_deferred, st, acts, table) for _ in range(2)]
@@ -1952,11 +2029,12 @@ def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
                ms=min(loop_ms), plain_ms=min(plain_ms), bound_ms=bound_ms,
                bytes_per_launch=nbytes,
                roofline_share=bound_ms / min(dev_ms))
-    log(f"timing kernel B={batch} {H}x{W} {family} random bbox: device "
+    log(f"timing kernel B={batch} {H}x{W} {family} random "
+        f"{'point' if point else 'bbox'}: device "
         f"{dev_ms[0] * 1e3:.2f} / {dev_ms[1] * 1e3:.2f} us per launch "
         f"(CUDA graph of 20 dependent launches, CUDA events); bound "
         f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.3f} MB per launch at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {out['roofline_share']:.1%} "
+        f"{hbm_bytes_per_s() / 1e12:.2f} TB/s), {out['roofline_share']:.1%} "
         f"of it; wrapper host {h_us[0]:.1f} / {h_us[1]:.1f} us per call "
         f"(host clock, 200 calls); host-inclusive loop {loop_ms[0]:.4f} / "
         f"{loop_ms[1]:.4f} ms per call; plain {plain_ms[0]:.4f} / "
@@ -1965,8 +2043,9 @@ def time_kernel(dev, card: str, H: int, W: int, batch: int = B,
 
 
 def phase_timing(dev, card: str) -> dict:
+    from arcle_tpu_torch.benchmarks.bench import CONFIG_ENVS, corpus_bank
     from arcle_tpu_torch.envs import random_bbox_rollout
-    from arcle_tpu_torch.ops import finish_flood
+    from arcle_tpu_torch.ops import arc_table, finish_flood, raw_table
     from arcle_tpu_torch.ops.step_kernel import plain_step_deferred
 
     by_geometry = {f"{h}x{w}": time_kernel(dev, card, h, w)
@@ -1982,6 +2061,15 @@ def phase_timing(dev, card: str) -> dict:
     # where train_answer_given launches it: 1024 envs, 5x5, colour ops only
     by_geometry[f"5x5_color_B{AG_B}"] = time_kernel(dev, card, 5, 5, AG_B,
                                                     answer_given=True)
+    # where bench_cuda's configurations launch it: Raw at 256 envs and ARC
+    # with point actions at 1024 envs, on the write_corpus bank
+    bank, _ = corpus_bank(dev)
+    raw_b, point_b = CONFIG_ENVS
+    by_geometry[f"30x30_raw_B{raw_b}"] = time_kernel(
+        dev, card, 30, 30, raw_b, table=raw_table(max_trial=-1), bank=bank)
+    by_geometry[f"30x30_arc_point_B{point_b}"] = time_kernel(
+        dev, card, 30, 30, point_b, table=arc_table(max_trial=-1), bank=bank,
+        point=True)
 
     env = main_env(dev)
     table = env.table
@@ -2037,6 +2125,7 @@ def device_work(fn, steps: int, match=("step_kernel",)) -> tuple:
 
 def phase_profile(dev, card: str):
     """Device work per step of the engine loop and of the PPO rollout."""
+    from arcle_tpu_torch.benchmarks.bench import train_config
     from arcle_tpu_torch.envs import random_bbox_rollout
     from arcle_tpu_torch.training import rollout
     from arcle_tpu_torch.training.train import setup_ppo
@@ -2340,12 +2429,15 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    from arcle_tpu_torch.benchmarks.roofline import card_line
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
+    from arcle_tpu_torch.benchmarks.bench import CONFIG_ENVS
     from arcle_tpu_torch.ops import step_kernel
+    raw_b, point_b = CONFIG_ENVS
     path, build_s, build_log = step_kernel.build()
     step_kernel.load()
     log(f"build: {build_s:.2f} s -> {path.name}")
@@ -2383,6 +2475,8 @@ def main() -> int:
     launches["emaml_dp"], launches["emaml_dp_gpt"] = edp["launches"], \
         edp["gpt_launches"]
     t100 = timing[f"30x30_crop33_B{EMAML_DP_B}"]
+    bench = phase_bench(dev, card)
+    launches["bench"] = bench["launches"]
 
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
@@ -2426,7 +2520,25 @@ def main() -> int:
         "device_ms": t100["device_ms"], "host_us": t100["host_us"],
         "bound_ms": t100["bound_ms"], "bound_by": "bytes",
         "bytes_per_launch": t100["bytes_per_launch"],
-        "library_ms": None}],
+        "library_ms": None}] + [{
+        # the same kernel at the shapes bench_cuda's configurations launch
+        # it (Raw at 256 envs, ARC with point actions at 1024)
+        "name": f"step_kernel@{shape}", "route": "cuda",
+        "source": "arcle_tpu_torch/csrc/step_kernel.cu",
+        "replaces": "arcle_tpu/ops/pallas_step.py:248",
+        "launches": bench["configs"][config]["launches"],
+        "max_abs_err": worst,
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"], "host_us": t["host_us"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "bytes_per_launch": t["bytes_per_launch"],
+        "roofline_share": t["roofline_share"],
+        "library_ms": None}
+        for shape, config, t in (
+            (f"30x30_raw_B{raw_b}", "raw_arc_256env",
+             timing[f"30x30_raw_B{raw_b}"]),
+            (f"30x30_arc_point_B{point_b}", "arc_point_1024env",
+             timing[f"30x30_arc_point_B{point_b}"]))],
         "gym_steps_per_s": gym_out["rates"],
         "gym_golden_steps": gym_out["golden_steps"],
         "gpt_forward_ms": gpt_ms,
@@ -2444,7 +2556,8 @@ def main() -> int:
         "emaml_dp_rollout_share": edp["rollout_share"],
         "emaml_dp_env_steps_per_s": edp["env_steps_per_s"],
         "emaml_dp_peak_gb": edp["peak_gb"],
-        "emaml_dp_gpt_s_per_meta_iteration": edp["gpt_s"]}
+        "emaml_dp_gpt_s_per_meta_iteration": edp["gpt_s"],
+        "bench_s": bench["seconds"]}
     log(f"total: {time.perf_counter() - t_start:.1f} s (host clock)")
     print(json.dumps(kernels))
     print(card)
