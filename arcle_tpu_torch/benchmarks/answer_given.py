@@ -39,6 +39,7 @@ from ..models.gpt import GPTConfig, GPTPolicy
 from ..ops.groups import G
 from ..ops.table import OpTable
 from ..training.agents import Agent, apply
+from ..utils.metrics import TRACE
 
 
 # ---------------------------------------------------------------------------
@@ -253,53 +254,57 @@ def answer_given_agent(model: GPTPolicy, min_log_std: float = -2.3,
                                         device=obs.device))
 
     def sample_fn(params, obs, generator=None, deterministic=False, u=None):
-        out = forward(params, obs)
-        u_op, u_bb = (None, None) if u is None else u
-        logits = out["op_logits"]
-        if deterministic:
-            op = torch.argmax(logits, dim=-1)
-        else:
-            op = bbox_dist._categorical(logits, generator, u_op)
-        lp_op = bbox_dist.op_log_softmax_at(logits, op)
-        src = sel_source(params, obs, op, out)
-        if categorical:
-            bl = bbox_dist._select_op_logits(src["bbox_logits_all"], op)
+        with TRACE.span("policy"):
+            out = forward(params, obs)
+            u_op, u_bb = (None, None) if u is None else u
+            logits = out["op_logits"]
             if deterministic:
-                coords = torch.argmax(bl, dim=-1)
+                op = torch.argmax(logits, dim=-1)
             else:
-                coords = bbox_dist._categorical(bl, generator, u_bb)
-            lp_bb = bbox_dist._log_softmax_at(bl, coords).sum(-1)
-            bbox = coords.to(I32)
-        else:
-            dist = bbox_dist.make_dist(src["bbox_mean_all"],
-                                       src["bbox_std_all"], op, min_log_std)
-            x = dist.mean() if deterministic \
-                else dist.sample(generator, u=u_bb)
-            x = torch.clamp(x, 0.0, 1.0)
-            bbox = torch.clamp(torch.floor(x * grid_size), 0,
-                               grid_size - 1).to(I32)
-            lp_bb = dist.log_prob(bbox.to(F32) / grid_size).sum(-1)
-        acts = torch.cat([bbox, op[..., None].to(I32)], dim=-1)
-        return acts, lp_op + lp_bb, out["value"]
+                op = bbox_dist._categorical(logits, generator, u_op)
+            lp_op = bbox_dist.op_log_softmax_at(logits, op)
+            src = sel_source(params, obs, op, out)
+            if categorical:
+                bl = bbox_dist._select_op_logits(src["bbox_logits_all"], op)
+                if deterministic:
+                    coords = torch.argmax(bl, dim=-1)
+                else:
+                    coords = bbox_dist._categorical(bl, generator, u_bb)
+                lp_bb = bbox_dist._log_softmax_at(bl, coords).sum(-1)
+                bbox = coords.to(I32)
+            else:
+                dist = bbox_dist.make_dist(src["bbox_mean_all"],
+                                           src["bbox_std_all"], op,
+                                           min_log_std)
+                x = dist.mean() if deterministic \
+                    else dist.sample(generator, u=u_bb)
+                x = torch.clamp(x, 0.0, 1.0)
+                bbox = torch.clamp(torch.floor(x * grid_size), 0,
+                                   grid_size - 1).to(I32)
+                lp_bb = dist.log_prob(bbox.to(F32) / grid_size).sum(-1)
+            acts = torch.cat([bbox, op[..., None].to(I32)], dim=-1)
+            return acts, lp_op + lp_bb, out["value"]
 
     def evaluate_fn(params, obs, actions):
-        out = forward(params, obs)
-        op = actions[..., 4]
-        src = sel_source(params, obs, op, out)
-        if categorical:
-            lp = bbox_dist.log_prob_categorical(
-                out["op_logits"], src["bbox_logits_all"], op,
-                actions[..., :4])
-            ent = bbox_dist.entropy_categorical(
-                out["op_logits"], src["bbox_logits_all"], op)
-        else:
-            lp = bbox_dist.log_prob(
-                out["op_logits"], src["bbox_mean_all"], src["bbox_std_all"],
-                op, actions[..., :4], grid_size, min_log_std=min_log_std)
-            ent = bbox_dist.entropy(
-                out["op_logits"], src["bbox_mean_all"], src["bbox_std_all"],
-                op, min_log_std=min_log_std)
-        return lp, out["value"], ent
+        with TRACE.span("policy"):
+            out = forward(params, obs)
+            op = actions[..., 4]
+            src = sel_source(params, obs, op, out)
+            if categorical:
+                lp = bbox_dist.log_prob_categorical(
+                    out["op_logits"], src["bbox_logits_all"], op,
+                    actions[..., :4])
+                ent = bbox_dist.entropy_categorical(
+                    out["op_logits"], src["bbox_logits_all"], op)
+            else:
+                lp = bbox_dist.log_prob(
+                    out["op_logits"], src["bbox_mean_all"],
+                    src["bbox_std_all"], op, actions[..., :4], grid_size,
+                    min_log_std=min_log_std)
+                ent = bbox_dist.entropy(
+                    out["op_logits"], src["bbox_mean_all"],
+                    src["bbox_std_all"], op, min_log_std=min_log_std)
+            return lp, out["value"], ent
 
     def aux_fn(params, obs, actions):
         """The action-conditioned forward for L_{r_t} / L_{s_{t+1}}

@@ -26,6 +26,7 @@ from ..ops.table import (
     answers_match_any as _match, step as _step, transition as _transition,
 )
 from ..ops.step_kernel import complete_step
+from ..utils.metrics import TRACE
 from .meta import augment_task, draw_augmentation
 
 
@@ -181,17 +182,19 @@ class BatchedEnv:
                         torch.Tensor]:
         """Lockstep step: returns ``(carry, obs, reward, terminated,
         truncated)``; ``obs`` is the post-step state before auto-reset."""
-        env2, reward, term = complete_step(bs.env, action, self.table)
-        env2, reward, term = self._shape_reward_term(env2, reward, term)
-        if self.episode_limit > 0:
-            trunc = env2.steps >= self.episode_limit
-        else:
-            trunc = torch.zeros_like(term)
-        if not self.auto_reset:
-            return (BatchedState(env=env2, generator=bs.generator,
-                                 pool=bs.pool), env2, reward, term, trunc)
-        return self._auto_reset(env2, bs, term | trunc), env2, reward, \
-            term, trunc
+        with TRACE.span("env.step"):
+            env2, reward, term = complete_step(bs.env, action, self.table)
+            env2, reward, term = self._shape_reward_term(env2, reward, term)
+            if self.episode_limit > 0:
+                trunc = env2.steps >= self.episode_limit
+            else:
+                trunc = torch.zeros_like(term)
+            if not self.auto_reset:
+                return (BatchedState(env=env2, generator=bs.generator,
+                                     pool=bs.pool), env2, reward, term,
+                        trunc)
+            return self._auto_reset(env2, bs, term | trunc), env2, reward, \
+                term, trunc
 
     def _shape_reward_term(self, env2: EnvState, reward: torch.Tensor,
                            term: torch.Tensor):
@@ -241,21 +244,22 @@ class BatchedEnv:
         the carry, else freshly drawn.  Rows are merged with
         ``torch.where`` for the whole batch, so the host is never asked
         whether any env is done."""
-        B = env2.batch
-        if bs.pool is not None:
-            fresh = self._fresh_from_pool(bs.pool, B)
-            pool = dataclasses.replace(
-                bs.pool, counter=bs.pool.counter + done.to(I32))
-        else:
-            fresh = reset(self.bank, bs.generator, self.opts, B,
-                          self.max_trial, self.augment)
-            pool = None
-        env3 = EnvState(**{
-            f.name: torch.where(
-                done.view((-1,) + (1,) * (getattr(env2, f.name).ndim - 1)),
-                getattr(fresh, f.name), getattr(env2, f.name))
-            for f in dataclasses.fields(EnvState)})
-        return BatchedState(env=env3, generator=bs.generator, pool=pool)
+        with TRACE.span("auto_reset"):
+            B = env2.batch
+            if bs.pool is not None:
+                fresh = self._fresh_from_pool(bs.pool, B)
+                pool = dataclasses.replace(
+                    bs.pool, counter=bs.pool.counter + done.to(I32))
+            else:
+                fresh = reset(self.bank, bs.generator, self.opts, B,
+                              self.max_trial, self.augment)
+                pool = None
+            env3 = EnvState(**{
+                f.name: torch.where(
+                    done.view((-1,) + (1,) * (getattr(env2, f.name).ndim - 1)),
+                    getattr(fresh, f.name), getattr(env2, f.name))
+                for f in dataclasses.fields(EnvState)})
+            return BatchedState(env=env3, generator=bs.generator, pool=pool)
 
 
 def make_reset_pool(env: BatchedEnv, generator: torch.Generator, batch: int,

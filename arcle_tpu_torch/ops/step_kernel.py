@@ -213,10 +213,12 @@ def complete_step(state: EnvState, action: Action, table: OpTable):
     terminated)``.  The kernel finishes flood fills itself, so on CUDA the
     host is asked nothing; the plain path asks whether any env is
     pending."""
-    state2, reward, term, pending = cuda_step_deferred(state, action, table)
-    if not state2.grid.is_cuda and bool(pending.any()):
-        state2 = finish_flood(state2, action, table, pending)
-    return state2, reward, term
+    with TRACE.span("step_kernel"):
+        state2, reward, term, pending = cuda_step_deferred(state, action,
+                                                           table)
+        if not state2.grid.is_cuda and bool(pending.any()):
+            state2 = finish_flood(state2, action, table, pending)
+        return state2, reward, term
 
 
 # The outputs in the kernel's order, by kind: names, dtype, and the shape
@@ -281,3 +283,7 @@ def _launch(lib: ctypes.CDLL, state: EnvState, action: Action,
         raise RuntimeError(f"step kernel launch failed: CUDA error {err}")
     term, pending = out.pop("_term"), out.pop("_pending")
     return state.replace(**out), out["last_reward"], term, pending
+
+
+# last: importing ``utils`` imports the engine, which imports this module
+from ..utils.metrics import TRACE  # noqa: E402

@@ -35,6 +35,7 @@ from ..models.mlp import (
     FCPolicy, multi_categorical_sample, multi_categorical_log_prob,
     multi_categorical_entropy, stack_padded_logits,
 )
+from ..utils.metrics import TRACE
 from ..wrappers import flatten_obs, full_flatten_obs, unflatten_full, \
     FULL_OBS_DIM
 
@@ -62,20 +63,23 @@ def apply(module: nn.Module, params, *args, **kwargs):
 
 def mlp_agent(policy: FCPolicy) -> Agent:
     def sample_fn(params, obs, generator=None, deterministic=False, u=None):
-        logits_tuple, value = apply(policy, params, obs)
-        if deterministic:
-            acts = torch.argmax(stack_padded_logits(logits_tuple),
-                                dim=-1).to(torch.int32)
-            lp = multi_categorical_log_prob(logits_tuple, acts)
-        else:
-            acts, lp = multi_categorical_sample(logits_tuple, generator, u)
-        return acts, lp, value
+        with TRACE.span("policy"):
+            logits_tuple, value = apply(policy, params, obs)
+            if deterministic:
+                acts = torch.argmax(stack_padded_logits(logits_tuple),
+                                    dim=-1).to(torch.int32)
+                lp = multi_categorical_log_prob(logits_tuple, acts)
+            else:
+                acts, lp = multi_categorical_sample(logits_tuple, generator,
+                                                    u)
+            return acts, lp, value
 
     def evaluate_fn(params, obs, actions):
-        logits_tuple, value = apply(policy, params, obs)
-        lp = multi_categorical_log_prob(logits_tuple, actions)
-        ent = multi_categorical_entropy(logits_tuple)
-        return lp, value, ent
+        with TRACE.span("policy"):
+            logits_tuple, value = apply(policy, params, obs)
+            lp = multi_categorical_log_prob(logits_tuple, actions)
+            ent = multi_categorical_entropy(logits_tuple)
+            return lp, value, ent
 
     def init_fn(generator: Optional[torch.Generator] = None) -> FCPolicy:
         fresh = copy.deepcopy(policy)
@@ -97,23 +101,26 @@ def gpt_agent(model: GPTPolicy, grid_size: int = 30) -> Agent:
                      f["input_dim"], f["trials_remain"], f["active"], **kw)
 
     def sample_fn(params, obs, generator=None, deterministic=False, u=None):
-        out = forward(params, obs)
-        u_op, u_bbox = (None, None) if u is None else u
-        s = bbox_dist.sample(out["op_logits"], out["bbox_mean_all"],
-                             out["bbox_std_all"], grid_size, deterministic,
-                             generator=generator, u_op=u_op, u_bbox=u_bbox)
-        acts = torch.cat([s.bbox, s.operation[..., None]], dim=-1)
-        return acts, s.log_prob, out["value"]
+        with TRACE.span("policy"):
+            out = forward(params, obs)
+            u_op, u_bbox = (None, None) if u is None else u
+            s = bbox_dist.sample(out["op_logits"], out["bbox_mean_all"],
+                                 out["bbox_std_all"], grid_size,
+                                 deterministic, generator=generator,
+                                 u_op=u_op, u_bbox=u_bbox)
+            acts = torch.cat([s.bbox, s.operation[..., None]], dim=-1)
+            return acts, s.log_prob, out["value"]
 
     def evaluate_fn(params, obs, actions):
-        out = forward(params, obs)
-        op = actions[..., 4]
-        lp = bbox_dist.log_prob(out["op_logits"], out["bbox_mean_all"],
-                                out["bbox_std_all"], op, actions[..., :4],
-                                grid_size)
-        ent = bbox_dist.entropy(out["op_logits"], out["bbox_mean_all"],
-                                out["bbox_std_all"], op)
-        return lp, out["value"], ent
+        with TRACE.span("policy"):
+            out = forward(params, obs)
+            op = actions[..., 4]
+            lp = bbox_dist.log_prob(out["op_logits"], out["bbox_mean_all"],
+                                    out["bbox_std_all"], op,
+                                    actions[..., :4], grid_size)
+            ent = bbox_dist.entropy(out["op_logits"], out["bbox_mean_all"],
+                                    out["bbox_std_all"], op)
+            return lp, out["value"], ent
 
     def aux_fn(params, obs, actions):
         """The action-conditioned forward (GPTPolicy.py:401-456 intent):

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..utils.metrics import TRACE
 from .rollout import Trajectory, gae
 
 
@@ -247,13 +248,14 @@ def permutations(generator: Optional[torch.Generator], n_epochs: int,
 def _update(params, opt: torch.optim.Optimizer, batch: PPOBatch, agent,
             cfg: PPOConfig, ent_coeff) -> Dict[str, torch.Tensor]:
     """One gradient step of the clipped loss on ``batch``."""
-    opt.zero_grad(set_to_none=True)
-    loss, stats = ppo_loss(params, agent, batch, cfg, ent_coeff)
-    loss.backward()
-    if cfg.max_grad_norm > 0:
-        _clip(params, cfg.max_grad_norm)
-    opt.step()
-    return {k: v.detach() for k, v in stats.items()}
+    with TRACE.span("minibatch"):
+        opt.zero_grad(set_to_none=True)
+        loss, stats = ppo_loss(params, agent, batch, cfg, ent_coeff)
+        loss.backward()
+        if cfg.max_grad_norm > 0:
+            _clip(params, cfg.max_grad_norm)
+        opt.step()
+        return {k: v.detach() for k, v in stats.items()}
 
 
 def _all_reduce_grads(params, group) -> None:
@@ -361,18 +363,20 @@ def train_step(params, opt: torch.optim.Optimizer, batch: PPOBatch,
     docstring): ``batch`` is this rank's ``[T * B/n]`` rows and
     ``rollout_steps`` their ``T``.  Each rank takes the rows it holds of
     every minibatch, which waits for the device once per minibatch."""
-    if group is not None:
-        return _train_step_grouped(params, opt, batch, generator, agent,
-                                   cfg, ent_coeff, group, rollout_steps)
-    if cfg.n_epochs == 1 and cfg.n_minibatches == 1:
-        return _update(params, opt, batch, agent, cfg, ent_coeff)
-    n = batch.obs.shape[0]
-    mb = max(1, n // cfg.n_minibatches)
-    epochs = []
-    for perm in permutations(generator, cfg.n_epochs, n, batch.obs.device):
-        shuf = batch.take(perm)
-        epochs.append(_mean_stats([
-            _update(params, opt, shuf.take(slice(i * mb, (i + 1) * mb)),
-                    agent, cfg, ent_coeff)
-            for i in range(cfg.n_minibatches)]))
-    return _mean_stats(epochs)
+    with TRACE.span("update"):
+        if group is not None:
+            return _train_step_grouped(params, opt, batch, generator, agent,
+                                       cfg, ent_coeff, group, rollout_steps)
+        if cfg.n_epochs == 1 and cfg.n_minibatches == 1:
+            return _update(params, opt, batch, agent, cfg, ent_coeff)
+        n = batch.obs.shape[0]
+        mb = max(1, n // cfg.n_minibatches)
+        epochs = []
+        for perm in permutations(generator, cfg.n_epochs, n,
+                                 batch.obs.device):
+            shuf = batch.take(perm)
+            epochs.append(_mean_stats([
+                _update(params, opt, shuf.take(slice(i * mb, (i + 1) * mb)),
+                        agent, cfg, ent_coeff)
+                for i in range(cfg.n_minibatches)]))
+        return _mean_stats(epochs)

@@ -17,6 +17,7 @@ import torch
 
 from ..core.state import Action, I8, I32, F32
 from ..envs.core import BatchedEnv, BatchedState, make_reset_pool
+from ..utils.metrics import TRACE
 from ..wrappers import bbox_action
 
 
@@ -51,47 +52,51 @@ def rollout(env: BatchedEnv, bs: BatchedState, params,
     """Collect ``n_steps`` of experience with an agent; returns
     ``(carry, traj, last_value)``.  ``generator`` (on the engine's device)
     draws the refreshed reset pool and the actions."""
-    H, W = env.bank.in_grids.shape[-2:]
-    # refresh the auto-reset pool once per rollout: fresh augmentations in
-    # one batch over B*K rows instead of inside the steps
-    if env.auto_reset and env.reset_pool > 0:
-        bs = dataclasses.replace(
-            bs, pool=make_reset_pool(env, generator, bs.batch))
-    B, dev, T = bs.batch, bs.env.device, n_steps
-    traj = Trajectory(
-        obs=torch.empty((T, B, agent.obs_dim), dtype=I8, device=dev),
-        actions=torch.empty((T, B, 5), dtype=I32, device=dev),
-        log_probs=torch.empty((T, B), dtype=F32, device=dev),
-        values=torch.empty((T, B), dtype=F32, device=dev),
-        rewards=torch.empty((T, B), dtype=F32, device=dev),
-        dones=torch.empty((T, B), dtype=torch.bool, device=dev),
-        terminated=torch.empty((T, B), dtype=torch.bool, device=dev),
-        final_values=torch.empty((T, B), dtype=F32, device=dev))
-    for t in range(T):
-        obs = agent.obs_fn(bs.env)
-        acts, lp, value = agent.sample_fn(params, obs, generator,
-                                          deterministic)
-        bs, obs_env, rew, term, trunc = env.step(
-            bs, decode_bbox_actions(acts, H, W))
-        # TimeLimit bootstrap: V of the pre-reset observation, kept only
-        # where an episode was truncated without terminating.  Computed for
-        # every env on every step: branching on any(trunc & ~term), as the
-        # JAX package does, would make the host wait for the device here.
-        _, v_fin, _ = agent.evaluate_fn(params, agent.obs_fn(obs_env), acts)
-        need = trunc & ~term
-        traj.obs[t] = obs
-        traj.actions[t] = acts
-        traj.log_probs[t] = lp
-        traj.values[t] = value
-        traj.rewards[t] = rew
-        traj.dones[t] = term | trunc
-        traj.terminated[t] = term
-        traj.final_values[t] = torch.where(need, v_fin,
-                                           torch.zeros_like(v_fin))
-    last_obs = agent.obs_fn(bs.env)
-    zero_act = torch.zeros((B, 5), dtype=I32, device=dev)
-    _, last_value, _ = agent.evaluate_fn(params, last_obs, zero_act)
-    return bs, traj, last_value
+    with TRACE.span("rollout"):
+        H, W = env.bank.in_grids.shape[-2:]
+        # refresh the auto-reset pool once per rollout: fresh augmentations
+        # in one batch over B*K rows instead of inside the steps
+        if env.auto_reset and env.reset_pool > 0:
+            with TRACE.span("reset_pool"):
+                bs = dataclasses.replace(
+                    bs, pool=make_reset_pool(env, generator, bs.batch))
+        B, dev, T = bs.batch, bs.env.device, n_steps
+        traj = Trajectory(
+            obs=torch.empty((T, B, agent.obs_dim), dtype=I8, device=dev),
+            actions=torch.empty((T, B, 5), dtype=I32, device=dev),
+            log_probs=torch.empty((T, B), dtype=F32, device=dev),
+            values=torch.empty((T, B), dtype=F32, device=dev),
+            rewards=torch.empty((T, B), dtype=F32, device=dev),
+            dones=torch.empty((T, B), dtype=torch.bool, device=dev),
+            terminated=torch.empty((T, B), dtype=torch.bool, device=dev),
+            final_values=torch.empty((T, B), dtype=F32, device=dev))
+        for t in range(T):
+            obs = agent.obs_fn(bs.env)
+            acts, lp, value = agent.sample_fn(params, obs, generator,
+                                              deterministic)
+            bs, obs_env, rew, term, trunc = env.step(
+                bs, decode_bbox_actions(acts, H, W))
+            # TimeLimit bootstrap: V of the pre-reset observation, kept
+            # only where an episode was truncated without terminating.
+            # Computed for every env on every step: branching on
+            # any(trunc & ~term), as the JAX package does, would make the
+            # host wait for the device here.
+            _, v_fin, _ = agent.evaluate_fn(params, agent.obs_fn(obs_env),
+                                            acts)
+            need = trunc & ~term
+            traj.obs[t] = obs
+            traj.actions[t] = acts
+            traj.log_probs[t] = lp
+            traj.values[t] = value
+            traj.rewards[t] = rew
+            traj.dones[t] = term | trunc
+            traj.terminated[t] = term
+            traj.final_values[t] = torch.where(need, v_fin,
+                                               torch.zeros_like(v_fin))
+        last_obs = agent.obs_fn(bs.env)
+        zero_act = torch.zeros((B, 5), dtype=I32, device=dev)
+        _, last_value, _ = agent.evaluate_fn(params, last_obs, zero_act)
+        return bs, traj, last_value
 
 
 def gae(traj: Trajectory, last_value: torch.Tensor, gamma: float,

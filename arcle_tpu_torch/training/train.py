@@ -39,7 +39,7 @@ from ..models.mlp import FCPolicy
 from ..parallel.mesh import rank_generator, shard_block, task_layout
 from ..utils.checkpoint import Checkpointer
 from ..utils.config import RunConfig, EnvConfig, make_table, make_loader
-from ..utils.metrics import MetricLogger, Throughput
+from ..utils.metrics import TRACE, MetricLogger, Throughput
 from .agents import Agent, gpt_agent, mlp_agent
 from .emaml import (
     EMAMLConfig, EMAMLState, all_task_rows, emaml_train_step, init_emaml,
@@ -164,28 +164,34 @@ def ppo_iteration(run: PPORun
     with ``aux_fn`` and ``aux_coeff > 0``).  Under ``run.group`` each rank
     rolls out its own envs and the update and the statistics are the
     data-parallel ones."""
-    cfg = run.cfg
-    marks = _Marks(run.bs.env.device)
-    marks.mark()
-    run.bs, traj, last_v = rollout(run.env, run.bs, run.params,
-                                   run.generator, run.n_steps, run.agent)
-    include_aux = cfg.ppo.aux_coeff > 0.0 and run.agent.aux_fn is not None
-    batch = batch_from_trajectory(traj, last_v, cfg.ppo,
-                                  include_aux=include_aux, group=run.group)
-    marks.mark()
-    stats = train_step(run.params, run.opt, batch, run.generator, run.agent,
-                       cfg.ppo, group=run.group, rollout_steps=run.n_steps)
-    marks.mark()
-    stats["episode_reward_mean"] = traj.rewards.sum(0).mean()
-    # success = a true termination before truncation
-    stats["success_rate"] = traj.terminated.any(0).to(torch.float32).mean()
-    if run.group is not None:
-        names = ("episode_reward_mean", "success_rate")
-        both = torch.stack([stats[k] for k in names])
-        dist.all_reduce(both, group=run.group)
-        both = both / dist.get_world_size(run.group)
-        stats.update(zip(names, both.unbind()))
-    return traj, stats, marks
+    with TRACE.span("iteration"):
+        cfg = run.cfg
+        marks = _Marks(run.bs.env.device)
+        marks.mark()
+        run.bs, traj, last_v = rollout(run.env, run.bs, run.params,
+                                       run.generator, run.n_steps, run.agent)
+        include_aux = cfg.ppo.aux_coeff > 0.0 \
+            and run.agent.aux_fn is not None
+        with TRACE.span("learner_batch"):
+            batch = batch_from_trajectory(traj, last_v, cfg.ppo,
+                                          include_aux=include_aux,
+                                          group=run.group)
+        marks.mark()
+        stats = train_step(run.params, run.opt, batch, run.generator,
+                           run.agent, cfg.ppo, group=run.group,
+                           rollout_steps=run.n_steps)
+        marks.mark()
+        stats["episode_reward_mean"] = traj.rewards.sum(0).mean()
+        # success = a true termination before truncation
+        stats["success_rate"] = traj.terminated.any(0).to(
+            torch.float32).mean()
+        if run.group is not None:
+            names = ("episode_reward_mean", "success_rate")
+            both = torch.stack([stats[k] for k in names])
+            dist.all_reduce(both, group=run.group)
+            both = both / dist.get_world_size(run.group)
+            stats.update(zip(names, both.unbind()))
+        return traj, stats, marks
 
 
 def _checkpoint(run: PPORun, i: int) -> Dict:

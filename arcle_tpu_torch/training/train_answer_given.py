@@ -43,7 +43,7 @@ from ..benchmarks.answer_given import (
 from ..envs.core import BatchedEnv, BatchedState
 from ..loaders.loader import TaskBank
 from ..utils.checkpoint import Checkpointer
-from ..utils.metrics import MetricLogger, Throughput
+from ..utils.metrics import TRACE, MetricLogger, Throughput
 from .agents import Agent
 from .ppo import (
     PPOBatch, PPOConfig, batch_from_trajectory, make_optimizer, train_step,
@@ -246,19 +246,21 @@ def iteration(run: AnswerGivenRun, ent_coeff: float
     Returns the trajectory, the statistics (device tensors) and the marks
     before the rollout, between rollout and update, and after the
     update."""
-    args = run.args
-    marks = _Marks(run.bs.env.device)
-    marks.mark()
-    run.bs, traj, last_v = rollout(run.env, run.bs, run.params,
-                                   run.generator, args.rollout, run.agent)
-    batch = learner_batch(traj, last_v, run.pcfg, args.size,
-                          args.potential_shaping)
-    marks.mark()
-    stats = train_step(run.params, run.opt, batch, run.generator, run.agent,
-                       run.pcfg, ent_coeff)
-    marks.mark()
-    stats.update(episode_stats(traj))
-    return traj, stats, marks
+    with TRACE.span("iteration"):
+        args = run.args
+        marks = _Marks(run.bs.env.device)
+        marks.mark()
+        run.bs, traj, last_v = rollout(run.env, run.bs, run.params,
+                                       run.generator, args.rollout, run.agent)
+        with TRACE.span("learner_batch"):
+            batch = learner_batch(traj, last_v, run.pcfg, args.size,
+                                  args.potential_shaping)
+        marks.mark()
+        stats = train_step(run.params, run.opt, batch, run.generator,
+                           run.agent, run.pcfg, ent_coeff)
+        marks.mark()
+        stats.update(episode_stats(traj))
+        return traj, stats, marks
 
 
 def train(args, logger: MetricLogger,

@@ -446,16 +446,36 @@ def test_bf16_mlp_smoke(tmp_path):
 
 def test_profile_trace_writes_a_trace(tmp_path):
     """``profile_trace`` yields the profiler and leaves a Chrome trace with
-    the traced ops under ``logdir``."""
+    the traced ops under ``logdir``, and the program's spans on a track of
+    their own, each over the operators run inside it."""
+    from arcle_tpu_torch.ops import o2arc_table
     from arcle_tpu_torch.utils import profile_trace
+    env = BatchedEnv(table=o2arc_table(127),
+                     bank=SyntheticLoader(4, seed=3).bank(device="cpu"),
+                     max_trial=127, episode_limit=3, reset_pool=2)
+    gen = torch.Generator().manual_seed(0)
+    bs = env.reset(gen, 4)
+    act = random_bbox_actions(gen, 4, env.table.n_ops, 30, 30, "cpu")
     with profile_trace(str(tmp_path / "trace")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        env.step(bs, act)
     files = list((tmp_path / "trace").glob("trace_*.json"))
     assert len(files) == 1
-    names = {e["name"] for e in json.load(open(files[0]))["traceEvents"]
-             if "name" in e}
+    events = json.load(open(files[0]))["traceEvents"]
+    names = {e["name"] for e in events if "name" in e}
     assert any("mm" in n for n in names)
     assert any("mm" in e.key for e in prof.key_averages())
+    spans = [e for e in events if e.get("cat") == "span"]
+    step = [e for e in spans if e["name"] == "env.step"]
+    assert len(step) == 1 and step[0]["ph"] == "X"
+    assert {e["name"] for e in spans} >= {"step_kernel", "auto_reset"}
+    assert {e["pid"] for e in spans}.isdisjoint(
+        {e["pid"] for e in events
+         if e.get("ph") == "X" and e.get("cat") != "span"})
+    a, b = step[0]["ts"], step[0]["ts"] + step[0]["dur"]
+    inside = [e for e in events if e.get("name") == "aten::where"]
+    assert inside and all(a - 20 <= e["ts"] and e["ts"] + e["dur"] <= b + 20
+                          for e in inside)
 
 
 def test_cuda_without_card_raises(tmp_path):
