@@ -54,6 +54,9 @@
 //     store (wraparound as in the reference); floor division and modulo of
 //     possibly negative values go through floordiv / floormod.
 //
+// The file also holds the engine epilogue (engine_epilogue, below), which runs
+// after this kernel in every batched step.
+//
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared library
 // with a plain C interface (ops/step_kernel.py loads it with ctypes).
 
@@ -734,6 +737,220 @@ int resident_warps() {
   return blocks * kEnvsPerBlock;
 }
 
+// ---------------------------------------------------------------------------
+// The engine epilogue: everything envs/core.py::BatchedEnv.step does after the
+// step kernel, in one launch.
+//
+// It replaces no TPU kernel: the JAX package leaves this tail to XLA's fusion
+// of its jitted step.  The port ran it as about 85 small PyTorch calls a step
+// (BatchedEnv.plain_epilogue, which stays as its plain version and its spec):
+// reward shaping (the dense CustomO2ARCEnv reward or the paper's pixel
+// reward), terminate-on-match, truncation at the episode limit, and the
+// auto-reset merge of fresh rows, from the reset pool or drawn this step,
+// into every field, with the pool counter's update.  It computes what the
+// plain version computes, bit for bit: the float32 rewards are written with
+// __fmul_rn / __fsub_rn / __fdiv_rn / __fadd_rn in the plain code's order,
+// so nvcc contracts nothing into an FMA, and counts and penalties are int32.
+//
+// What bounds it on an H100: bytes.  A live env copies its 8 post-step grids
+// into the carried state (900 bytes each at 30x30) and reads grid and answer
+// once more, from cache, for the reward's counts: about 7.2 KB read and 7.2
+// KB written per env, some 59 MB per launch at B=4096, about 18 us at 3.35
+// TB/s.  A done env reads its fresh grid and answer instead.  The arithmetic
+// is a compare and two adds per cell.
+//
+// Design.  One warp per env, as in the step kernel: an env's done flag, and
+// so every branch, is uniform across its warp, and the two counts are warp
+// reductions.  Neighbouring lanes move neighbouring 4-byte words (a 900-byte
+// row starts on a 4-byte boundary only), through copy_row, so each lane has
+// its whole share of a row in flight before it stores any.  B=4096 envs are
+// resident at once on the 132 SMs, about 3.7 MB in flight, more than the
+// HBM's latency asks for.  Fresh rows are read only for the envs that are
+// done, and the scalars are spread over lanes.  Geometry is the step
+// kernel's: 30x30 and 5x5 with constant H and W, any other H*W <= 1024 with
+// runtime H, W.
+
+struct EpiParams {
+  // the post-step state: grids [B, P] in the order of Params' grids (grid,
+  // input, answer, selected, clip, object, object_sel, background), dims
+  // (grid_dim, input_dim, answer_dim, clip_dim, object_dim, object_pos),
+  // flags (trials_remain, terminated, active, rotation_parity,
+  // reset_on_submit), counts (steps, submit_count, last_action_op)
+  const int8_t* grid[8];
+  const int8_t* dim[6];
+  int8_t* flag[5];                 // terminated is written back on a match
+  const int32_t* count[3];
+  const float* last_reward;
+  const float* reward;             // the sparse reward
+  const bool* term;
+  // fresh rows: [B*K, P] pool rows (K > 0), or one drawn row per env (K = 0)
+  const int8_t* f_grid; const int8_t* f_dim;
+  const int8_t* f_answer; const int8_t* f_answer_dim;
+  const int32_t* counter;          // [B], K > 0
+  const int8_t* ros;               // a fresh row's reset_on_submit: [B] or []
+  // outputs: the carried state, the new counter, reward, term, trunc
+  int8_t* o_grid[8];
+  int8_t* o_dim[6];
+  int8_t* o_flag[5];
+  int32_t* o_count[3];
+  int32_t* o_counter;
+  float* o_last_reward;
+  float* o_reward; bool* o_term; bool* o_trunc;
+  int B, H, W, K, dense, pixel, match, auto_reset, episode_limit, max_trial,
+      ros_stride;
+};
+
+template <int H_, int W_, int V>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+engine_epilogue(const EpiParams p) {
+  using T = typename Word<V>::T;
+  const int lane = threadIdx.x & 31;
+  const int env = blockIdx.x * kEnvsPerBlock + (threadIdx.x >> 5);
+  if (env >= p.B) return;                 // the ragged last block
+  const int H = H_ ? H_ : p.H, W = H_ ? W_ : p.W, P = H * W;
+  const int NW = P / V;
+  const size_t gbase = static_cast<size_t>(env) * P;
+  const int d = 2 * env;
+  const int gh = p.dim[0][d], gw = p.dim[0][d + 1];
+  const int ah = p.dim[2][d], aw = p.dim[2][d + 1];
+  const int minh = min(gh, ah), minw = min(gw, aw);
+
+  // ---- the counts the rewards and the match read: one pass ----
+  // correct: equal cells inside both dims (dense_reward); wrong: differing
+  // cells inside the answer's dims (pixel_reward, answers_match_any)
+  int correct = 0, wrong = 0;
+  if (p.dense || p.pixel || p.match) {
+    const int8_t* g = p.grid[0] + gbase;
+    const int8_t* a = p.grid[2] + gbase;
+    for (int w = lane; w < NW; w += 32) {
+      const T gv = ldw<V>(g, w), av = ldw<V>(a, w);
+#pragma unroll
+      for (int b = 0; b < V; ++b) {
+        const int c = w * V + b, r = c / W, col = c - r * W;
+        const bool same = cell<V>(gv, b) == cell<V>(av, b);
+        correct += (r < minh && col < minw && same) ? 1 : 0;
+        wrong += (r < ah && col < aw && !same) ? 1 : 0;
+      }
+    }
+    correct = __reduce_add_sync(kFull, correct);
+    wrong = __reduce_add_sync(kFull, wrong);
+  }
+
+  // ---- reward, termination, truncation ----
+  float reward = p.reward[env];
+  if (p.pixel) {                          // -(wrong / max(ah * aw, 1))
+    reward = -__fdiv_rn(__int2float_rn(wrong),
+                        __int2float_rn(max(ah * aw, 1)));
+  } else if (p.dense) {                   // 100 sparse - 1 + correct / total
+    const bool both = (gh <= ah) == (gw <= aw);
+    const int pen = both ? abs(ah * aw - gh * gw)
+                         : abs(gh - ah) * minw + abs(gw - aw) * minh;
+    const float total = __fadd_rn(__int2float_rn(minh * minw),
+                                  __int2float_rn(pen));
+    reward = __fadd_rn(__fsub_rn(__fmul_rn(reward, 100.0f), 1.0f),
+                       __fdiv_rn(__int2float_rn(correct), total));
+  }
+  int terminated = p.flag[1][env];
+  bool term = p.term[env];
+  if (p.match) {                          // max(terminated, solved)
+    const bool solved = gh == ah && gw == aw && wrong == 0;
+    terminated = max(terminated, solved ? 1 : 0);
+    term = terminated != 0;
+  }
+  const bool trunc = p.episode_limit > 0 && p.count[0][env] >= p.episode_limit;
+  if (lane == 0) {
+    p.o_reward[env] = reward;
+    p.o_term[env] = term;
+    p.o_trunc[env] = trunc;
+    // in place: the step kernel's fresh output, which `obs` carries
+    if (p.match) p.flag[1][env] = static_cast<int8_t>(terminated);
+  }
+  if (!p.auto_reset) return;
+
+  // ---- the carried state: the post-step row, or a fresh one ----
+  const bool done = term || trunc;
+  const int cnt = p.K ? p.counter[env] : 0;
+  if (lane == 0 && p.K)
+    p.o_counter[env] = static_cast<int32_t>(static_cast<uint32_t>(cnt) +
+                                            (done ? 1u : 0u));
+  const size_t row = p.K ? static_cast<size_t>(env) * p.K + floormod(cnt, p.K)
+                         : static_cast<size_t>(env);
+  int fh = 0, fw = 0;
+  if (done) {
+    fh = p.f_dim[2 * row];
+    fw = p.f_dim[2 * row + 1];
+    // grid and input: the fresh grid, masked to its dims where it was drawn
+    // this step (init_state); a pool row was masked when the pool was made
+    const int8_t* fg = p.f_grid + row * P;
+    const bool mask = p.K == 0;
+    for (int w = lane; w < NW; w += 32) {
+      T v = ldw<V>(fg, w);
+      if (mask) {
+        T m = 0;
+#pragma unroll
+        for (int b = 0; b < V; ++b) {
+          const int c = w * V + b, r = c / W, col = c - r * W;
+          if (r < fh && col < fw) m = put<V>(m, b, cell<V>(v, b));
+        }
+        v = m;
+      }
+      stw<V>(p.o_grid[0] + gbase, w, v);
+      stw<V>(p.o_grid[1] + gbase, w, v);
+    }
+    copy_row<V>(p.o_grid[2] + gbase, p.f_answer + row * P, false, NW, lane);
+#pragma unroll
+    for (int k = 3; k < 8; ++k)
+      copy_row<V>(p.o_grid[k] + gbase, nullptr, true, NW, lane);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      copy_row<V>(p.o_grid[k] + gbase, p.grid[k] + gbase, false, NW, lane);
+  }
+
+  // scalars, one field a lane: dims on lanes 0-5, flags on 6-10, counts on
+  // 11-13, last_reward on 14; a fresh row is init_state's
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    if (lane != k) continue;
+    int8_t v0 = 0, v1 = 0;
+    if (!done) {
+      v0 = p.dim[k][d]; v1 = p.dim[k][d + 1];
+    } else if (k <= 1) {                  // grid_dim, input_dim
+      v0 = static_cast<int8_t>(fh); v1 = static_cast<int8_t>(fw);
+    } else if (k == 2) {                  // answer_dim
+      v0 = p.f_answer_dim[2 * row]; v1 = p.f_answer_dim[2 * row + 1];
+    }
+    p.o_dim[k][d] = v0;
+    p.o_dim[k][d + 1] = v1;
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    if (lane != 6 + k) continue;
+    int8_t v = 0;
+    if (!done) {
+      v = k == 1 ? static_cast<int8_t>(terminated) : p.flag[k][env];
+    } else if (k == 0) {                  // trials_remain
+      v = static_cast<int8_t>(p.max_trial);
+    } else if (k == 4) {                  // reset_on_submit
+      v = p.ros[static_cast<size_t>(env) * p.ros_stride];
+    }
+    p.o_flag[k][env] = v;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (lane != 11 + k) continue;
+    p.o_count[k][env] = done ? (k == 2 ? -1 : 0) : p.count[k][env];
+  }
+  if (lane == 14) p.o_last_reward[env] = done ? 0.0f : p.last_reward[env];
+}
+
+template <int H_, int W_, int V>
+int launch_epilogue(const EpiParams& p, cudaStream_t stream) {
+  const int blocks = (p.B + kEnvsPerBlock - 1) / kEnvsPerBlock;
+  engine_epilogue<H_, W_, V><<<blocks, kThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Warps (envs) of the instantiation for H x W that one SM holds at once,
@@ -791,4 +1008,61 @@ extern "C" int arcle_step_launch(const void* const* in, void* out,
   if (H == 30 && W == 30) return launch<30, 30, 4>(p, s);
   if (H == 5 && W == 5) return launch<5, 5, 1>(p, s);
   return launch<0, 0, 1>(p, s);
+}
+
+// Plain C entry point of the engine epilogue.  `in` is a host array of 31
+// device pointers: the post-step state's 8 grids, 6 dims, 5 flags, 3 counts
+// and last_reward in the order of EpiParams, then the sparse reward, term,
+// the fresh grid, dim, answer and answer_dim, the pool counter (unused when
+// K = 0) and the reset_on_submit row (`ros_stride` 0 for a scalar).  The 27
+// outputs lie in one device arena at `out`, output k at byte offset
+// out_offsets[k]: the carried state's 23 fields in the same order with the
+// new counter after the counts, then reward, term and trunc; with
+// auto_reset = 0 only the last three are written.  At 30x30 the grids must
+// start on 4-byte boundaries.  Launches on `stream` and returns
+// cudaGetLastError() of the launch.
+extern "C" int arcle_epilogue_launch(const void* const* in, void* out,
+                                     const int64_t* out_offsets, int B, int H,
+                                     int W, int K, int dense, int pixel,
+                                     int match, int auto_reset,
+                                     int episode_limit, int max_trial,
+                                     int ros_stride, void* stream) {
+  EpiParams p;
+  const int8_t* const* i8 = reinterpret_cast<const int8_t* const*>(in);
+  for (int k = 0; k < 8; ++k) p.grid[k] = i8[k];
+  for (int k = 0; k < 6; ++k) p.dim[k] = i8[8 + k];
+  for (int k = 0; k < 5; ++k) p.flag[k] = const_cast<int8_t*>(i8[14 + k]);
+  for (int k = 0; k < 3; ++k)
+    p.count[k] = static_cast<const int32_t*>(in[19 + k]);
+  p.last_reward = static_cast<const float*>(in[22]);
+  p.reward = static_cast<const float*>(in[23]);
+  p.term = static_cast<const bool*>(in[24]);
+  p.f_grid = i8[25]; p.f_dim = i8[26];
+  p.f_answer = i8[27]; p.f_answer_dim = i8[28];
+  p.counter = static_cast<const int32_t*>(in[29]);
+  p.ros = i8[30];
+
+  int8_t* base = static_cast<int8_t*>(out);
+  int8_t* o[27];
+  for (int k = 0; k < 27; ++k) o[k] = base + out_offsets[k];
+  for (int k = 0; k < 8; ++k) p.o_grid[k] = o[k];
+  for (int k = 0; k < 6; ++k) p.o_dim[k] = o[8 + k];
+  for (int k = 0; k < 5; ++k) p.o_flag[k] = o[14 + k];
+  for (int k = 0; k < 3; ++k) p.o_count[k] = reinterpret_cast<int32_t*>(o[19 + k]);
+  p.o_counter = reinterpret_cast<int32_t*>(o[22]);
+  p.o_last_reward = reinterpret_cast<float*>(o[23]);
+  p.o_reward = reinterpret_cast<float*>(o[24]);
+  p.o_term = reinterpret_cast<bool*>(o[25]);
+  p.o_trunc = reinterpret_cast<bool*>(o[26]);
+
+  p.B = B; p.H = H; p.W = W; p.K = K; p.dense = dense; p.pixel = pixel;
+  p.match = match; p.auto_reset = auto_reset;
+  p.episode_limit = episode_limit; p.max_trial = max_trial;
+  p.ros_stride = ros_stride;
+
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == 30 && W == 30) return launch_epilogue<30, 30, 4>(p, s);
+  if (H == 5 && W == 5) return launch_epilogue<5, 5, 1>(p, s);
+  return launch_epilogue<0, 0, 1>(p, s);
 }

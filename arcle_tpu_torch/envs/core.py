@@ -7,9 +7,13 @@ package's keys: parity tests pin task indices and inject the same pool).
 
 :meth:`BatchedEnv.step` goes through the CUDA step kernel when the state
 lives on a CUDA device and through the plain PyTorch transition when it
-lives on the CPU.  On CUDA the step asks the host nothing: the kernel
-finishes flood fills itself, and auto-reset merges fresh rows with
-``torch.where`` for every env.
+lives on the CPU.  On CUDA the step asks the host nothing: the step
+kernel finishes flood fills itself, and everything after it (reward
+shaping, terminate-on-match, truncation and the auto-reset merge with the
+pool counter) is one launch of the engine epilogue kernel
+(``ops/step_kernel.py::step_epilogue``).  On the CPU the same tail is
+plain PyTorch (:meth:`BatchedEnv.plain_epilogue`), which merges fresh rows
+with ``torch.where`` for every env.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from ..ops.table import (
     OpTable, dense_reward as _dense, pixel_reward as _pixel,
     answers_match_any as _match, step as _step, transition as _transition,
 )
-from ..ops.step_kernel import complete_step
+from ..ops.step_kernel import complete_step, step_epilogue
 from ..utils.metrics import TRACE
 from .meta import augment_task, draw_augmentation
 
@@ -72,14 +76,12 @@ class ResetOptions:
             for f in dataclasses.fields(self)})
 
 
-def reset(bank: TaskBank, generator: torch.Generator, opts: ResetOptions,
-          batch: int, max_trial: int = -1,
-          augment: bool = False) -> EnvState:
-    """Fresh states for ``batch`` envs: pick (task, pair), initialise.
-
-    ``augment`` applies the reset-time rot90 + colour permutation
-    (:mod:`.meta`) to the chosen pairs, drawn from ``generator``.
-    """
+def draw_reset(bank: TaskBank, generator: torch.Generator,
+               opts: ResetOptions, batch: int, augment: bool = False):
+    """The draw part of :func:`reset`: pick (task, pair) per env and, with
+    ``augment``, its rot90 + colour permutation, from ``generator``.
+    Returns ``(grid, dim, answer, answer_dim)``, the grid not yet masked
+    to its dims (``init_state`` does that)."""
     dev = bank.device
     o = opts.rows(batch, dev)
     draw_task = torch.randint(0, bank.n_tasks, (batch,), generator=generator,
@@ -97,8 +99,22 @@ def reset(bank: TaskBank, generator: torch.Generator, opts: ResetOptions,
         k, perm = draw_augmentation(generator, batch, dev)
         grid, dim, answer, answer_dim = augment_task(grid, dim, answer,
                                                      answer_dim, k, perm)
+    return grid, dim, answer, answer_dim
+
+
+def reset(bank: TaskBank, generator: torch.Generator, opts: ResetOptions,
+          batch: int, max_trial: int = -1,
+          augment: bool = False) -> EnvState:
+    """Fresh states for ``batch`` envs: pick (task, pair), initialise.
+
+    ``augment`` applies the reset-time rot90 + colour permutation
+    (:mod:`.meta`) to the chosen pairs, drawn from ``generator``.
+    """
+    grid, dim, answer, answer_dim = draw_reset(bank, generator, opts, batch,
+                                               augment)
+    ros = _env_rows(opts.reset_on_submit, batch).to(bank.device)
     return init_state(grid, dim, answer, answer_dim, max_trial=max_trial,
-                      reset_on_submit=o.reset_on_submit.to(I8))
+                      reset_on_submit=ros.to(I8))
 
 
 step = _step
@@ -165,6 +181,10 @@ class BatchedEnv:
         opts = ResetOptions.make(device=self.device) if self.opts is None \
             else self.opts.to(self.device)
         object.__setattr__(self, "opts", opts)
+        # the fresh rows' reset_on_submit as the epilogue kernel reads it
+        # (a scalar or a [B] row), cast once here rather than every step
+        object.__setattr__(self, "reset_on_submit_i8",
+                           opts.reset_on_submit.to(I8).contiguous())
 
     @property
     def device(self) -> torch.device:
@@ -184,17 +204,32 @@ class BatchedEnv:
         truncated)``; ``obs`` is the post-step state before auto-reset."""
         with TRACE.span("env.step"):
             env2, reward, term = complete_step(bs.env, action, self.table)
-            env2, reward, term = self._shape_reward_term(env2, reward, term)
-            if self.episode_limit > 0:
-                trunc = env2.steps >= self.episode_limit
-            else:
-                trunc = torch.zeros_like(term)
-            if not self.auto_reset:
-                return (BatchedState(env=env2, generator=bs.generator,
-                                     pool=bs.pool), env2, reward, term,
-                        trunc)
-            return self._auto_reset(env2, bs, term | trunc), env2, reward, \
-                term, trunc
+            return step_epilogue(self, bs, env2, reward, term)
+
+    def plain_epilogue(self, bs: BatchedState, env2: EnvState,
+                       reward: torch.Tensor, term: torch.Tensor
+                       ) -> Tuple[BatchedState, EnvState, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+        """What :meth:`step` does after the transition, in plain PyTorch:
+        reward shaping, terminate-on-match, truncation and auto-reset.
+        The spec of the epilogue kernel, and its version for CPU
+        tensors."""
+        env2, reward, term = self._shape_reward_term(env2, reward, term)
+        if self.episode_limit > 0:
+            trunc = env2.steps >= self.episode_limit
+        else:
+            trunc = torch.zeros_like(term)
+        if not self.auto_reset:
+            return (BatchedState(env=env2, generator=bs.generator,
+                                 pool=bs.pool), env2, reward, term, trunc)
+        return self._auto_reset(env2, bs, term | trunc), env2, reward, \
+            term, trunc
+
+    def draw_fresh(self, generator: torch.Generator, batch: int):
+        """Fresh rows for a pool-less auto-reset: :func:`draw_reset` with
+        this env's bank, options and augmentation."""
+        return draw_reset(self.bank, generator, self.opts, batch,
+                          self.augment)
 
     def _shape_reward_term(self, env2: EnvState, reward: torch.Tensor,
                            term: torch.Tensor):

@@ -25,14 +25,24 @@ Phases, each printing its numbers on a line of its own:
               seeded at their far end, int8 selections other than 0/1,
               object ops on envs holding an object, reset-on-submit rows);
               every state field, the reward and `terminated` bit-exact;
-4. engine  -- BatchedEnv on CUDA against the same engine on the CPU, same
+4. engine  -- BatchedEnv on CUDA (the step kernel, then the engine
+              epilogue) against the same engine on the CPU (plain), same
               start, pool and actions, 256 envs x 40 steps across
-              auto-resets: carry, obs, reward, term, trunc bit-exact; then
-              the answer-given env (5x5, colour-only table, pixel reward,
-              terminate on match, pool-less auto-reset with pinned tasks)
-              on CUDA against the CPU, 256 envs x 60 steps with
-              episode_limit=50, half of the envs steered to solve: solved
-              terminations, truncations and auto-resets, all bit-exact;
+              auto-resets: carry, obs, the reward's bits, term, trunc and
+              the pool counter bit-exact, one epilogue launch a step; the
+              o2arc_mlp cells' engine (crop33 table, dense reward,
+              augmentation, 8-deep pool, episode_limit 100), 256 envs x
+              110 steps, likewise; then the answer-given env (5x5,
+              colour-only table, pixel reward, terminate on match,
+              pool-less auto-reset with pinned tasks) on CUDA against the
+              CPU, 1024 envs x 60 steps with episode_limit=50, half of the
+              envs steered to solve, with auto-reset (solved
+              terminations, truncations and fresh draws) and without
+              (the evaluator's env), all bit-exact; and the epilogue's
+              device time per launch (a CUDA graph of 20 dependent
+              launches), its bound, host time per call and the plain
+              tail's time at B=4096 30x30 (8-deep pool) and B=1024 5x5
+              (pool-less);
    gym     -- the Gymnasium surface at B=1, with or without gymnasium:
               the native C++ engine and baker built with g++ (seconds
               logged); the golden-trace set (>= 200 traces, the reference
@@ -359,13 +369,108 @@ def phase_parity(dev) -> float:
     return worst
 
 
-def phase_engine(dev):
-    """BatchedEnv on CUDA (kernel) against BatchedEnv on the CPU (plain)."""
+def engine_compare(what: str, env_c, env_g, bs_c, bs_g, steps: int,
+                   actions) -> dict:
+    """``steps`` lockstep steps of ``env_g`` on the card (the step kernel,
+    then the engine epilogue) against ``env_c`` on the CPU (both plain)
+    from the same start: carry, obs, the reward's bits, term, trunc and
+    the pool counter bit-exact after every step, and one epilogue launch a
+    card step.  ``actions(t, state_c)`` gives ``(card action, CPU
+    action)``.  Returns the done, terminated and truncated envs and the
+    last CPU carry and rewards."""
     from arcle_tpu_torch.core import FIELDS
+    from arcle_tpu_torch.ops import step_kernel
+
+    launches = step_kernel.EPILOGUE_LAUNCHES
+    done = terms = truncs = 0
+    for t in range(steps):
+        act_g, act_c = actions(t, bs_c.env)
+        bs_g, obs_g, r_g, te_g, tr_g = env_g.step(bs_g, act_g)
+        bs_c, obs_c, r_c, te_c, tr_c = env_c.step(bs_c, act_c)
+        checks = [("reward bits", r_g.view(torch.int32),
+                   r_c.view(torch.int32)),
+                  ("term", te_g, te_c), ("trunc", tr_g, tr_c)]
+        if bs_c.pool is not None:
+            checks.append(("pool.counter", bs_g.pool.counter,
+                           bs_c.pool.counter))
+        checks += [(f"obs.{f}", getattr(obs_g, f), getattr(obs_c, f))
+                   for f in FIELDS]
+        checks += [(f"carry.{f}", getattr(bs_g.env, f), getattr(bs_c.env, f))
+                   for f in FIELDS]
+        for name, g, c in checks:
+            if g.dtype != c.dtype or not torch.equal(g.cpu(), c):
+                raise AssertionError(f"{what}: step {t} {name} differs")
+        done += int((te_c | tr_c).sum())
+        terms += int(te_c.sum())
+        truncs += int((tr_c & ~te_c).sum())
+    launches = step_kernel.EPILOGUE_LAUNCHES - launches
+    if launches != steps:
+        raise AssertionError(f"{what}: {launches} epilogue launches for "
+                             f"{steps} steps")
+    return {"done": done, "terms": terms, "truncs": truncs,
+            "launches": launches, "bs_c": bs_c, "reward_c": r_c,
+            "term_c": te_c}
+
+
+EPILOGUES: dict = {}  # engine epilogue launches by main path, as counted
+
+
+def zero_launches() -> None:
+    """Zero the step kernel's and the engine epilogue's launch counters."""
+    from arcle_tpu_torch.ops import step_kernel
+    step_kernel.LAUNCHES = step_kernel.EPILOGUE_LAUNCHES = 0
+
+
+def count_epilogues(path: str, steps: int) -> int:
+    """The engine epilogue's launches since :func:`zero_launches`, which
+    must equal the ``steps`` BatchedEnv took on the card (one epilogue a
+    step); kept under ``path`` for the kernels line."""
+    from arcle_tpu_torch.ops import step_kernel
+    got = step_kernel.EPILOGUE_LAUNCHES
+    if got != steps:
+        raise AssertionError(f"{path}: {got} engine epilogue launches for "
+                             f"{steps} BatchedEnv steps")
+    EPILOGUES[path] = EPILOGUES.get(path, 0) + got
+    return got
+
+
+def carry_to(bs, dev):
+    """A carry on ``dev`` (the card or the CPU), with a fresh generator
+    there."""
+    from arcle_tpu_torch.envs.core import BatchedState
+    to_dev = lambda s: type(s)(**{f.name: getattr(s, f.name).to(dev)
+                                  for f in dataclasses.fields(s)})
+    return BatchedState(env=to_dev(bs.env),
+                        generator=torch.Generator(device=dev),
+                        pool=None if bs.pool is None else to_dev(bs.pool))
+
+
+def mlp_cell_env(bank):
+    """The ``o2arc_mlp`` cells' engine: train.py's crop33 table at
+    max_trial 127, dense reward, augmentation, an 8-deep pool and
+    episode_limit 100."""
+    from arcle_tpu_torch.envs import BatchedEnv
+    from arcle_tpu_torch.ops import o2arc_table
+    return BatchedEnv(table=o2arc_table(max_trial=127, crop_at_33=True),
+                      bank=bank, max_trial=127, episode_limit=100,
+                      auto_reset=True, dense_reward=True, augment=True,
+                      reset_pool=8)
+
+
+def phase_engine(dev) -> dict:
+    """BatchedEnv on CUDA (step kernel and engine epilogue) against
+    BatchedEnv on the CPU (plain), then the epilogue's timings."""
+    from arcle_tpu_torch.benchmarks.roofline import card_line
     from arcle_tpu_torch.envs import BatchedEnv, random_bbox_actions
     from arcle_tpu_torch.loaders import SyntheticLoader
     from arcle_tpu_torch.ops import o2arc_table
-    from arcle_tpu_torch.envs.core import BatchedState
+
+    def bbox(gen, n, n_ops):
+        def actions(t, st):
+            act = random_bbox_actions(gen, n, n_ops, 30, 30, dev)
+            return act, type(act)(selection=act.selection.cpu(),
+                                  operation=act.operation.cpu())
+        return actions
 
     n, steps = 256, 40
     bank = SyntheticLoader(16, seed=3).bank(device="cpu")
@@ -374,34 +479,60 @@ def phase_engine(dev):
                               auto_reset=True, reset_pool=3)
     env_c, env_g = mk(bank), mk(bank.to(dev))
     bs_c = env_c.reset(torch.Generator().manual_seed(7), n)
-    to_dev = lambda s, d: type(s)(**{f.name: getattr(s, f.name).to(d)
-                                     for f in dataclasses.fields(s)})
-    bs_g = BatchedState(env=to_dev(bs_c.env, dev),
-                        generator=torch.Generator(device=dev),
-                        pool=to_dev(bs_c.pool, dev))
-    gen = torch.Generator(device=dev).manual_seed(8)
-    for t in range(steps):
-        act = random_bbox_actions(gen, n, 35, 30, 30, dev)
-        act_c = type(act)(selection=act.selection.cpu(),
-                          operation=act.operation.cpu())
-        bs_g, obs_g, r_g, te_g, tr_g = env_g.step(bs_g, act)
-        bs_c, obs_c, r_c, te_c, tr_c = env_c.step(bs_c, act_c)
-        checks = [("reward", r_g, r_c), ("term", te_g, te_c),
-                  ("trunc", tr_g, tr_c),
-                  ("pool.counter", bs_g.pool.counter, bs_c.pool.counter)]
-        checks += [(f"obs.{f}", getattr(obs_g, f), getattr(obs_c, f))
-                   for f in FIELDS]
-        checks += [(f"carry.{f}", getattr(bs_g.env, f), getattr(bs_c.env, f))
-                   for f in FIELDS]
-        for name, g, c in checks:
-            if not torch.equal(g.cpu(), c):
-                raise AssertionError(f"engine: step {t} {name} differs")
-    resets = int(bs_c.pool.counter.sum())
+    out = engine_compare("engine", env_c, env_g, bs_c, carry_to(bs_c, dev),
+                         steps,
+                         bbox(torch.Generator(device=dev).manual_seed(8), n,
+                              35))
+    resets = int(out["bs_c"].pool.counter.sum())
     if resets < n:
         raise AssertionError(f"engine: only {resets} auto-resets")
     log(f"engine: BatchedEnv cuda vs cpu, {n} envs x {steps} steps, "
-        f"{resets} auto-resets, bit-exact")
-    engine_answer_given(dev)
+        f"{resets} auto-resets, {out['launches']} epilogue launches, "
+        "bit-exact")
+
+    # the o2arc_mlp cells' engine: dense reward, augmented 8-deep pool
+    steps = 110
+    bank = SyntheticLoader(32, seed=7).bank(device="cpu")
+    env_c, env_g = mlp_cell_env(bank), mlp_cell_env(bank.to(dev))
+    bs_c = env_c.reset(torch.Generator().manual_seed(9), n)
+    out = engine_compare("engine o2arc_mlp", env_c, env_g, bs_c,
+                         carry_to(bs_c, dev), steps,
+                         bbox(torch.Generator(device=dev).manual_seed(10), n,
+                              env_c.table.n_ops))
+    if out["truncs"] < n // 2:
+        raise AssertionError(f"engine o2arc_mlp: only {out['truncs']} "
+                             "truncations")
+    log(f"engine o2arc_mlp: crop33 table, dense reward, augment, pool 8, "
+        f"episode_limit 100, cuda vs cpu, {n} envs x {steps} steps, "
+        f"{out['done']} auto-resets ({out['truncs']} truncated), "
+        f"{out['launches']} epilogue launches, reward bits, term, trunc, "
+        "obs, carry, counter bit-exact")
+
+    # the same engine at the main path's B=4096: the card steps alone to
+    # step 94 of the first episodes, then card and CPU go on in lockstep
+    # across the truncations at step 100 and the resets from the pool
+    n, lead, steps = B, 94, 12
+    env_g = mlp_cell_env(bank.to(dev))
+    bs_g = env_g.reset(torch.Generator(device=dev).manual_seed(11), n)
+    act_gen = torch.Generator(device=dev).manual_seed(12)
+    for _ in range(lead):
+        bs_g = env_g.step(bs_g, random_bbox_actions(
+            act_gen, n, env_g.table.n_ops, 30, 30, dev))[0]
+    out = engine_compare(f"engine o2arc_mlp B={n}", env_c, env_g,
+                         carry_to(bs_g, torch.device("cpu")), bs_g, steps,
+                         bbox(act_gen, n, env_c.table.n_ops))
+    if out["truncs"] < n // 2:
+        raise AssertionError(f"engine o2arc_mlp B={n}: only {out['truncs']} "
+                             "truncations")
+    log(f"engine o2arc_mlp B={n}: {lead} steps on the card alone, then "
+        f"cuda vs cpu, {n} envs x {steps} steps, {out['done']} auto-resets "
+        f"({out['truncs']} truncated), {out['launches']} epilogue launches, "
+        "reward bits, term, trunc, obs, carry, counter bit-exact")
+    engine_answer_given(dev, auto_reset=True)
+    engine_answer_given(dev, auto_reset=False)
+    card = card_line()
+    return {"30x30": time_epilogue(dev, card, "o2arc_mlp"),
+            "5x5": time_epilogue(dev, card, "answer_given")}
 
 
 def steering_actions(st, helpful, gen):
@@ -422,61 +553,147 @@ def steering_actions(st, helpful, gen):
     return torch.where(steer[:, None], fix, box).to(torch.int32)
 
 
-def engine_answer_given(dev):
+def engine_answer_given(dev, auto_reset: bool = True):
     """The answer-given env on CUDA (kernel) against the same env on the
-    CPU (plain): pinned tasks, so the pool-less auto-reset draws the same
-    fresh episodes; the same actions."""
+    CPU (plain), at its B=1024: pinned tasks, so the pool-less auto-reset
+    draws the same fresh episodes; the same actions.  Without auto-reset
+    (the evaluator's env), solved envs stay terminated."""
     from arcle_tpu_torch.benchmarks import answer_given_env
-    from arcle_tpu_torch.core import FIELDS
     from arcle_tpu_torch.envs import ResetOptions
-    from arcle_tpu_torch.envs.core import BatchedState
     from arcle_tpu_torch.training.rollout import decode_bbox_actions
 
-    n, steps, limit = 256, 60, 50
-    env_c = answer_given_env(n_tasks=1024, seed=5, episode_limit=limit,
+    n, steps, limit = AG_B, 60, 50
+    env_c = answer_given_env(n_tasks=4096, seed=5, episode_limit=limit,
                              device="cpu")
     pin = ResetOptions.make(prob_index=torch.arange(n) * 4, subprob_index=0,
                             device="cpu")
-    env_c = dataclasses.replace(env_c, opts=pin)
+    env_c = dataclasses.replace(env_c, opts=pin, auto_reset=auto_reset)
     env_g = dataclasses.replace(env_c, bank=env_c.bank.to(dev),
                                 opts=pin.to(dev))
     bs_c = env_c.reset(torch.Generator().manual_seed(7), n)
-    bs_g = BatchedState(
-        env=type(bs_c.env)(**{f: getattr(bs_c.env, f).to(dev)
-                              for f in FIELDS}),
-        generator=torch.Generator(device=dev))
     gen = torch.Generator().manual_seed(8)
     helpful = torch.arange(n) % 2 == 0
-    solved = truncated = 0
-    for t in range(steps):
-        acts = steering_actions(bs_c.env, helpful, gen)
-        bs_c, obs_c, r_c, te_c, tr_c = env_c.step(
-            bs_c, decode_bbox_actions(acts, 5, 5))
-        bs_g, obs_g, r_g, te_g, tr_g = env_g.step(
-            bs_g, decode_bbox_actions(acts.to(dev), 5, 5))
-        checks = [("reward", r_g, r_c), ("term", te_g, te_c),
-                  ("trunc", tr_g, tr_c)]
-        checks += [(f"obs.{f}", getattr(obs_g, f), getattr(obs_c, f))
-                   for f in FIELDS]
-        checks += [(f"carry.{f}", getattr(bs_g.env, f), getattr(bs_c.env, f))
-                   for f in FIELDS]
-        for name, g, c in checks:
-            if not torch.equal(g.cpu(), c):
-                raise AssertionError(f"engine answer-given: step {t} {name} "
-                                     "differs")
-        if not torch.equal(r_c == 0, te_c) or float(r_c.min()) < -1.0 or \
-                float(r_c.max()) > 0.0:
-            raise AssertionError(f"engine answer-given: step {t}: the pixel "
-                                 "reward is not in [-1, 0] with 0 at a solve")
-        solved += int(te_c.sum())
-        truncated += int((tr_c & ~te_c).sum())
-    if solved < n // 2 or truncated < n // 4:
-        raise AssertionError(f"engine answer-given: {solved} solved and "
-                             f"{truncated} truncated episodes")
-    log(f"engine answer-given: answer_given_env cuda vs cpu, {n} envs x "
-        f"{steps} steps, episode_limit={limit}, colour-only 5x5 table, "
-        f"{solved} solved terminations, {truncated} truncations, every "
-        "one auto-reset, pixel reward, term, trunc, obs, carry bit-exact")
+
+    def actions(t, st):
+        acts = steering_actions(st, helpful, gen)
+        return decode_bbox_actions(acts.to(dev), 5, 5), \
+            decode_bbox_actions(acts, 5, 5)
+
+    what = f"engine answer-given{'' if auto_reset else ' (no auto-reset)'}"
+    out = engine_compare(what, env_c, env_g, bs_c, carry_to(bs_c, dev), steps,
+                         actions)
+    r_c, te_c = out["reward_c"], out["term_c"]
+    if (auto_reset and not torch.equal(r_c == 0, te_c)) or \
+            float(r_c.min()) < -1.0 or float(r_c.max()) > 0.0:
+        raise AssertionError(f"{what}: the pixel reward is not in [-1, 0] "
+                             "with 0 at a solve")
+    solved, truncated = out["terms"], out["truncs"]
+    if auto_reset and (solved < n // 2 or truncated < n // 4):
+        raise AssertionError(f"{what}: {solved} solved and {truncated} "
+                             "truncated episodes")
+    if not auto_reset and int(te_c.sum()) < n // 4:
+        raise AssertionError(f"{what}: only {int(te_c.sum())} envs "
+                             "terminated")
+    log(f"{what}: answer_given_env cuda vs cpu, {n} envs x {steps} steps, "
+        f"episode_limit={limit}, colour-only 5x5 table, {solved} solved "
+        f"terminations, {truncated} truncations, "
+        f"{'every one auto-reset' if auto_reset else 'none reset'}, "
+        f"{out['launches']} epilogue launches, pixel reward bits, term, "
+        "trunc, obs, carry bit-exact")
+
+
+def epilogue_bytes(env2, done, shaped: bool) -> float:
+    """The bytes one epilogue launch must move: every env writes its carried
+    state (8 grids and 33 bytes of scalars) and 10 bytes of counter,
+    reward, term and trunc; a live env reads its post-step state and 9
+    bytes of reward, term and counter; a done env reads its scalars, its
+    fresh grid, answer and dims, and its grid and answer for the counts
+    where the reward is shaped or a match ends it."""
+    B, H, W = env2.grid.shape
+    P = H * W
+    n_done = int(done.sum())
+    write = B * (8 * P + 33 + 10)
+    read = (B - n_done) * (8 * P + 33 + 9) + \
+        n_done * (33 + 9 + 2 * P + 4 + (2 * P if shaped else 0))
+    return float(read + write)
+
+
+def time_epilogue(dev, card: str, which: str) -> dict:
+    """The engine epilogue where the main paths launch it: ``o2arc_mlp``
+    (B=4096 30x30, 8-deep pool) or ``answer_given`` (B=1024 5x5,
+    pool-less, fresh rows drawn once here).  Device time per launch (a CUDA
+    graph of 20 dependent launches replayed between CUDA events, as the
+    step kernel's), its bound, the wrapper's host time per call and the
+    plain tail's time per step on the card (CUDA events)."""
+    from arcle_tpu_torch.benchmarks import answer_given_env
+    from arcle_tpu_torch.envs import random_bbox_actions
+    from arcle_tpu_torch.loaders import SyntheticLoader
+    from arcle_tpu_torch.ops import step_kernel
+
+    if which == "o2arc_mlp":
+        env = mlp_cell_env(SyntheticLoader(32, seed=7).bank(device=dev))
+        batch, side = B, 30
+    else:
+        env, batch, side = answer_given_env(n_tasks=4096, seed=3,
+                                            device=dev), AG_B, 5
+    bs = env.reset(torch.Generator(device=dev).manual_seed(2), batch)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(3):                     # a state some steps in
+        bs = env.step(bs, random_bbox_actions(gen, batch, env.table.n_ops,
+                                              side, side, dev))[0]
+    act = random_bbox_actions(gen, batch, env.table.n_ops, side, side, dev)
+    env2, reward, term = step_kernel.complete_step(bs.env, act, env.table)
+    ros = env.reset_on_submit_i8
+    if bs.pool is not None:
+        p = bs.pool
+        fresh, k = (p.grid, p.dim, p.answer, p.answer_dim, p.counter,
+                    ros), p.k
+    else:
+        fresh, k = env.draw_fresh(torch.Generator(device=dev).manual_seed(4),
+                                  batch) + (None, ros), 0
+    lib = step_kernel.load()
+    shaped = env.dense_reward or env.pixel_reward or env.terminate_on_match
+
+    def epilogue(s, a, t):                 # chained: the carry feeds the next
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return step_kernel._epilogue(lib, stream, env, bs, s, s.last_reward,
+                                     term, fresh, k)[0].env,
+
+    done = term | (env2.steps >= env.episode_limit)
+    nbytes = epilogue_bytes(env2, done, shaped)
+    bound_ms = nbytes / hbm_bytes_per_s() * 1e3
+    dev_ms = [graph_device_ms(epilogue, env2, [None], None)
+              for _ in range(2)]
+    host = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            step_kernel.step_epilogue(env, bs, env2, reward, term)
+        host.append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    gen_p = torch.Generator(device=dev)
+
+    def plain():
+        gen_p.manual_seed(5)
+        env.plain_epilogue(type(bs)(env=env2, generator=gen_p, pool=bs.pool),
+                           env2, reward, term)
+    _event_ms(plain, 3)                                   # warm-up
+    plain_ms = [_event_ms(plain, 20) for _ in range(2)]
+    out = dict(device_ms=min(dev_ms), host_us=min(host),
+               plain_ms=min(plain_ms), bound_ms=bound_ms,
+               bytes_per_launch=nbytes, roofline_share=bound_ms / min(dev_ms),
+               done=int(done.sum()))
+    log(f"timing epilogue B={batch} {side}x{side} {which} "
+        f"({'pool' if k else 'pool-less'}, {out['done']} done): device "
+        f"{dev_ms[0] * 1e3:.2f} / {dev_ms[1] * 1e3:.2f} us per launch (CUDA "
+        f"graph of 20 dependent launches, CUDA events); bound "
+        f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.3f} MB per launch at "
+        f"{hbm_bytes_per_s() / 1e12:.2f} TB/s), {out['roofline_share']:.1%} "
+        f"of it; wrapper host {host[0]:.1f} / {host[1]:.1f} us per call "
+        f"(host clock, 200 calls); plain tail {plain_ms[0]:.4f} / "
+        f"{plain_ms[1]:.4f} ms per step (CUDA events) ({card})")
+    return out
 
 
 def gym_random_action(rng, n_ops: int, side: int = 30) -> dict:
@@ -713,7 +930,7 @@ def phase_main(dev):
     warm_s = time.perf_counter() - t0
     ctr0 = bs.pool.counter.clone()
 
-    step_kernel.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     bs, chk = random_bbox_rollout(env, bs, MAIN_STEPS, act_gen)
     torch.cuda.synchronize()
@@ -723,6 +940,7 @@ def phase_main(dev):
     if launches != MAIN_STEPS:
         raise AssertionError(f"main: {launches} kernel launches for "
                              f"{MAIN_STEPS} steps")
+    epilogues = count_epilogues("main", MAIN_STEPS)
     resets = bs.pool.counter - ctr0
     if not bool((resets >= 1).all()):
         raise AssertionError("main: some envs never auto-reset")
@@ -736,6 +954,7 @@ def phase_main(dev):
     if not bool(((st.steps >= 0) & (st.steps < 100)).all()):
         raise AssertionError("main: step counters outside [0, 100)")
     log(f"main: O2ARCv2 {B} envs x {MAIN_STEPS} steps, launches={launches}, "
+        f"epilogue launches={epilogues}, "
         f"auto-resets={int(resets.sum())} (every env), checksum={int(chk)}, "
         f"warm-up {warm_s:.3f} s, run {run_s:.3f} s (host clock)")
     return launches
@@ -841,10 +1060,11 @@ def phase_train(dev, card: str):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_kernel.LAUNCHES = 0
+    zero_launches()
     pol = run_ppo(cfg, MetricLogger(None), on_iteration=on_iteration)
     torch.cuda.synchronize()
     launches = step_kernel.LAUNCHES
+    count_epilogues("train", launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if len(rows) != iters:
         raise AssertionError(f"train: {len(rows)} iterations ran")
@@ -868,8 +1088,8 @@ def phase_train(dev, card: str):
         f"{len(timed)} timed iterations: "
         f"{ms:.1f} ms/iter, {B * T / ms * 1e3:,.0f} env-steps/s incl. "
         f"learner, rollout {roll / ms:.1%} / update {1 - roll / ms:.1%}, "
-        f"peak memory {peak_gb:.2f} GiB, {launches} kernel launches in "
-        f"{iters} iterations ({card})")
+        f"peak memory {peak_gb:.2f} GiB, {launches} kernel launches and as "
+        f"many epilogue launches in {iters} iterations ({card})")
     update = sum(r["update_ms"] for r in timed) / len(timed)
     return {"launches": launches, "ms": ms, "update_ms": update}
 
@@ -1035,12 +1255,13 @@ def phase_emaml(dev, card: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_kernel.LAUNCHES = 0
+    zero_launches()
     t_prev[0] = time.perf_counter()
     pol = run_emaml(cfg, MetricLogger(None), on_iteration=on_iteration,
                     profile=True)
     torch.cuda.synchronize()
     launches = step_kernel.LAUNCHES
+    count_epilogues("emaml", launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if len(rows) != cfg.total_iterations:
         raise AssertionError(f"emaml: {len(rows)} meta-iterations ran")
@@ -1101,10 +1322,11 @@ def phase_gpt_ppo(dev, card: str) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_kernel.LAUNCHES = 0
+    zero_launches()
     run_ppo(cfg, MetricLogger(None), on_iteration=on_iteration)
     torch.cuda.synchronize()
     launches = step_kernel.LAUNCHES
+    count_epilogues("gpt_ppo", launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if len(rows) != cfg.total_iterations:
         raise AssertionError(f"gpt-ppo: {len(rows)} iterations ran")
@@ -1295,15 +1517,19 @@ def phase_answer_given(dev, card: str) -> dict:
             torch.Generator().manual_seed(args.seed))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        step_kernel.LAUNCHES = 0
+        zero_launches()
         t0 = time.perf_counter()
         pol = tag_train.train(args, MetricLogger(None),
                               on_iteration=on_iteration)
         torch.cuda.synchronize()
         launches = step_kernel.LAUNCHES
         total_s = time.perf_counter() - t0
+        count_epilogues("answer_given", launches)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        zero_launches()                    # the evaluator: no auto-reset
         it, scores = eval_answer_given.evaluate(ckpt_dir, device="cuda")
+        torch.cuda.synchronize()
+        count_epilogues("answer_given_eval", step_kernel.LAUNCHES)
     if len(rows) != args.iterations:
         raise AssertionError(f"answer-given: {len(rows)} iterations ran")
     if all(torch.equal(a.cpu(), b) for a, b in
@@ -1459,9 +1685,10 @@ def phase_parallel(dev, card: str, train: dict) -> dict:
         assert_all_processes_alive(timeout_s=30.0)
         init_s = time.perf_counter() - t0
 
-        step_kernel.LAUNCHES = 0
+        zero_launches()
         dry = dryrun_multichip(1, device="cuda", report=False)
         dry_launches = step_kernel.LAUNCHES
+        count_epilogues("dryrun", dry_launches)
         if dry_launches != DRYRUN_T or dry["launches"] != DRYRUN_T:
             raise AssertionError(f"parallel: the dry run launched the step "
                                  f"kernel {dry_launches} times, not "
@@ -1489,7 +1716,7 @@ def phase_parallel(dev, card: str, train: dict) -> dict:
             worst = max(worst, max_abs_diff(v, ref[k]))
 
         rows = []
-        step_kernel.LAUNCHES = 0
+        zero_launches()
         for _ in range(DP_ITERS):
             before = step_kernel.LAUNCHES
             _, stats, marks = ppo_iteration(run)
@@ -1502,6 +1729,7 @@ def phase_parallel(dev, card: str, train: dict) -> dict:
                 raise AssertionError(f"parallel: DP loss {loss}")
             rows.append(marks.ms())
         dp_launches = step_kernel.LAUNCHES
+        count_epilogues("dp_ppo", dp_launches)
         timed = rows[1:]
         roll = sum(r[0] for r in timed) / len(timed)
         upd = sum(r[1] for r in timed) / len(timed)
@@ -1593,12 +1821,13 @@ def _emaml_dp_train(card: str, group) -> dict:
     torch.cuda.reset_peak_memory_stats()
     emaml.task_rollout = timed_rollout
     try:
-        step_kernel.LAUNCHES = 0
+        zero_launches()
         t_prev[0] = time.perf_counter()
         pol = train.run_emaml(cfg, MetricLogger(None),
                               on_iteration=on_iteration, group=group)
         torch.cuda.synchronize()
         launches = step_kernel.LAUNCHES
+        count_epilogues("emaml_dp", launches)
     finally:
         emaml.task_rollout = real
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -1725,13 +1954,14 @@ def _emaml_dp_gpt(card: str, group) -> dict:
         rows.append(dict(loss=loss, units=m["unit_times"]))
 
     torch.cuda.synchronize()
-    step_kernel.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     run_emaml(cfg, MetricLogger(None), on_iteration=on_iteration,
               profile=True, group=group)
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
     launches = step_kernel.LAUNCHES
+    count_epilogues("emaml_dp_gpt", launches)
     if launches != per_iter or len(rows) != 1:
         raise AssertionError(f"emaml-dp gpt: {launches} step-kernel "
                              f"launches in {len(rows)} meta-iterations, not "
@@ -1850,7 +2080,7 @@ def phase_bench(dev, card: str) -> dict:
     from arcle_tpu_torch.ops import step_kernel
 
     args = bench_cuda.parse_args([])
-    step_kernel.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = bench_cuda.run(args)
     seconds = time.perf_counter() - t0
@@ -1863,6 +2093,8 @@ def phase_bench(dev, card: str) -> dict:
                           out["configs"]["roofline"].values())
     if launches != want:
         raise AssertionError(f"bench: {launches} kernel launches, not {want}")
+    # every launch but the single-env adapter's goes through BatchedEnv
+    count_epilogues("bench", launches - bench.ADAPTER_STEPS)
     print(json.dumps(out), flush=True)
     log(f"bench: bench_cuda.py's defaults in {seconds:.1f} s (host clock), "
         f"{launches} kernel launches; engine {out['value']:,} env-steps/s "
@@ -2453,7 +2685,7 @@ def main() -> int:
         return 0
 
     worst = phase_parity(dev)
-    phase_engine(dev)
+    epilogue = phase_engine(dev)
     gym_out = phase_gym(dev, card)
     launches = {"gym": gym_out["launches"], "main": phase_main(dev)}
     phase_learner(dev)
@@ -2478,6 +2710,10 @@ def main() -> int:
     bench = phase_bench(dev, card)
     launches["bench"] = bench["launches"]
 
+    # the answer-given paths launch the epilogue at 5x5, all others at 30x30
+    epi_paths = {shape: {p: n for p, n in EPILOGUES.items()
+                         if p.startswith("answer_given") == (shape == "5x5")}
+                 for shape in epilogue}
     kernels = {"kernels": [{
         "name": "step_kernel", "route": "cuda",
         "source": "arcle_tpu_torch/csrc/step_kernel.cu",
@@ -2539,6 +2775,20 @@ def main() -> int:
              timing[f"30x30_raw_B{raw_b}"]),
             (f"30x30_arc_point_B{point_b}", "arc_point_1024env",
              timing[f"30x30_arc_point_B{point_b}"]))],
+        "engine_epilogue": [{
+            # the engine epilogue where the o2arc_mlp cells and the
+            # answer-given suite launch it: once per BatchedEnv.step
+            "name": f"engine_epilogue@{shape}", "route": "cuda",
+            "source": "arcle_tpu_torch/csrc/step_kernel.cu",
+            "replaces": None,
+            "launches": sum(epi_paths[shape].values()),
+            "launches_by_path": epi_paths[shape],
+            "plain_ms": t["plain_ms"],
+            "device_ms": t["device_ms"], "host_us": t["host_us"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "bytes_per_launch": t["bytes_per_launch"],
+            "roofline_share": t["roofline_share"], "library_ms": None}
+            for shape, t in epilogue.items()],
         "gym_steps_per_s": gym_out["rates"],
         "gym_golden_steps": gym_out["golden_steps"],
         "gpt_forward_ms": gpt_ms,
