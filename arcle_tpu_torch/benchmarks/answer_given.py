@@ -38,7 +38,7 @@ from ..models import bbox_dist
 from ..models.gpt import GPTConfig, GPTPolicy
 from ..ops.groups import G
 from ..ops.table import OpTable
-from ..training.agents import Agent, apply
+from ..training.agents import Agent, PolicyGraphs, apply
 from ..utils.metrics import TRACE
 
 
@@ -237,6 +237,7 @@ def answer_given_agent(model: GPTPolicy, min_log_std: float = -2.3,
     h, w = c.grid_x, c.grid_y
     grid_size = max(h, w)
     categorical = c.bbox_bins > 0
+    graphs = PolicyGraphs()
 
     def forward(params, obs, **kw):
         grid, grid_dim, ans, ans_dim = _unpack(obs, h, w)
@@ -253,58 +254,68 @@ def answer_given_agent(model: GPTPolicy, min_log_std: float = -2.3,
                        bbox=torch.zeros(op.shape + (4,), dtype=F32,
                                         device=obs.device))
 
+    def sample_core(params, obs, u_op, u_bb, deterministic):
+        out = forward(params, obs)
+        logits = out["op_logits"]
+        if deterministic:
+            op = torch.argmax(logits, dim=-1)
+        else:
+            op = bbox_dist._categorical(logits, None, u_op)
+        lp_op = bbox_dist.op_log_softmax_at(logits, op)
+        src = sel_source(params, obs, op, out)
+        if categorical:
+            bl = bbox_dist._select_op_logits(src["bbox_logits_all"], op)
+            if deterministic:
+                coords = torch.argmax(bl, dim=-1)
+            else:
+                coords = bbox_dist._categorical(bl, None, u_bb)
+            lp_bb = bbox_dist._log_softmax_at(bl, coords).sum(-1)
+            bbox = coords.to(I32)
+        else:
+            dist = bbox_dist.make_dist(src["bbox_mean_all"],
+                                       src["bbox_std_all"], op, min_log_std)
+            x = dist.mean() if deterministic else dist.sample(u=u_bb)
+            x = torch.clamp(x, 0.0, 1.0)
+            bbox = torch.clamp(torch.floor(x * grid_size), 0,
+                               grid_size - 1).to(I32)
+            lp_bb = dist.log_prob(bbox.to(F32) / grid_size).sum(-1)
+        acts = torch.cat([bbox, op[..., None].to(I32)], dim=-1)
+        return acts, lp_op + lp_bb, out["value"]
+
+    def evaluate_core(params, obs, actions):
+        out = forward(params, obs)
+        op = actions[..., 4]
+        src = sel_source(params, obs, op, out)
+        if categorical:
+            lp = bbox_dist.log_prob_categorical(
+                out["op_logits"], src["bbox_logits_all"], op,
+                actions[..., :4])
+            ent = bbox_dist.entropy_categorical(
+                out["op_logits"], src["bbox_logits_all"], op)
+        else:
+            lp = bbox_dist.log_prob(
+                out["op_logits"], src["bbox_mean_all"], src["bbox_std_all"],
+                op, actions[..., :4], grid_size, min_log_std=min_log_std)
+            ent = bbox_dist.entropy(
+                out["op_logits"], src["bbox_mean_all"], src["bbox_std_all"],
+                op, min_log_std=min_log_std)
+        return lp, out["value"], ent
+
+    sample, evaluate = graphs.wrap(sample_core), graphs.wrap(evaluate_core)
+
     def sample_fn(params, obs, generator=None, deterministic=False, u=None):
         with TRACE.span("policy"):
-            out = forward(params, obs)
-            u_op, u_bb = (None, None) if u is None else u
-            logits = out["op_logits"]
-            if deterministic:
-                op = torch.argmax(logits, dim=-1)
-            else:
-                op = bbox_dist._categorical(logits, generator, u_op)
-            lp_op = bbox_dist.op_log_softmax_at(logits, op)
-            src = sel_source(params, obs, op, out)
-            if categorical:
-                bl = bbox_dist._select_op_logits(src["bbox_logits_all"], op)
-                if deterministic:
-                    coords = torch.argmax(bl, dim=-1)
-                else:
-                    coords = bbox_dist._categorical(bl, generator, u_bb)
-                lp_bb = bbox_dist._log_softmax_at(bl, coords).sum(-1)
-                bbox = coords.to(I32)
-            else:
-                dist = bbox_dist.make_dist(src["bbox_mean_all"],
-                                           src["bbox_std_all"], op,
-                                           min_log_std)
-                x = dist.mean() if deterministic \
-                    else dist.sample(generator, u=u_bb)
-                x = torch.clamp(x, 0.0, 1.0)
-                bbox = torch.clamp(torch.floor(x * grid_size), 0,
-                                   grid_size - 1).to(I32)
-                lp_bb = dist.log_prob(bbox.to(F32) / grid_size).sum(-1)
-            acts = torch.cat([bbox, op[..., None].to(I32)], dim=-1)
-            return acts, lp_op + lp_bb, out["value"]
+            u_op = u_bb = None
+            if not deterministic:
+                u_op, u_bb = bbox_dist.draw_uniforms(
+                    obs.shape[:-1], c.num_actions, generator, obs.device,
+                    c.bbox_bins, u)
+            return sample(params, obs, u_op, u_bb,
+                          deterministic=deterministic)
 
     def evaluate_fn(params, obs, actions):
         with TRACE.span("policy"):
-            out = forward(params, obs)
-            op = actions[..., 4]
-            src = sel_source(params, obs, op, out)
-            if categorical:
-                lp = bbox_dist.log_prob_categorical(
-                    out["op_logits"], src["bbox_logits_all"], op,
-                    actions[..., :4])
-                ent = bbox_dist.entropy_categorical(
-                    out["op_logits"], src["bbox_logits_all"], op)
-            else:
-                lp = bbox_dist.log_prob(
-                    out["op_logits"], src["bbox_mean_all"],
-                    src["bbox_std_all"], op, actions[..., :4], grid_size,
-                    min_log_std=min_log_std)
-                ent = bbox_dist.entropy(
-                    out["op_logits"], src["bbox_mean_all"],
-                    src["bbox_std_all"], op, min_log_std=min_log_std)
-            return lp, out["value"], ent
+            return evaluate(params, obs, actions)
 
     def aux_fn(params, obs, actions):
         """The action-conditioned forward for L_{r_t} / L_{s_{t+1}}
@@ -320,7 +331,7 @@ def answer_given_agent(model: GPTPolicy, min_log_std: float = -2.3,
 
     return Agent(obs_fn=answer_obs, sample_fn=sample_fn,
                  evaluate_fn=evaluate_fn, init_fn=init_fn,
-                 obs_dim=2 * h * w + 4, aux_fn=aux_fn)
+                 obs_dim=2 * h * w + 4, aux_fn=aux_fn, graphs=graphs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from . import truncated_normal
 from .mlp import gumbel_uniforms
 from .truncated_normal import TruncatedNormal
 
@@ -69,6 +70,24 @@ def _categorical(logits: torch.Tensor, generator: Optional[torch.Generator],
     if u is None:
         u = gumbel_uniforms(logits.shape, generator, logits.device)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def draw_uniforms(lead, n_ops: int, generator: Optional[torch.Generator],
+                  device, bins: int = 0, u=None):
+    """``(u_op, u_bbox)``: the uniforms a draw of ``n_ops`` operations and
+    a bbox over a batch of shape ``lead`` takes from ``generator``, in the
+    order the samplers draw them: the op's Gumbel uniforms ``[*lead,
+    n_ops]``, then the bbox's, truncated-normal ``[*lead, 4]`` or, for a
+    categorical head of ``bins`` bins, Gumbel ``[*lead, 4, bins]``.  The
+    entries of ``u`` that are not None are kept, and draw nothing."""
+    u_op, u_bbox = (None, None) if u is None else u
+    if u_op is None:
+        u_op = gumbel_uniforms((*lead, n_ops), generator, device)
+    if u_bbox is None:
+        u_bbox = gumbel_uniforms((*lead, 4, bins), generator, device) \
+            if bins else truncated_normal.sample_uniforms((*lead, 4),
+                                                          generator, device)
+    return u_op, u_bbox
 
 
 def sample(op_logits: torch.Tensor, mean_all: torch.Tensor,

@@ -117,6 +117,16 @@ def gumbel_uniforms(shape, generator: Optional[torch.Generator],
                       device=device).clamp_(min=1e-12)
 
 
+def multi_categorical_uniforms(sizes: Sequence[int], lead: Sequence[int],
+                               generator: Optional[torch.Generator],
+                               device) -> torch.Tensor:
+    """The uniforms :func:`multi_categorical_sample` draws for heads of
+    ``sizes`` over a batch of shape ``lead``: ``[*lead, heads, max(sizes)]``
+    (the padded logits' shape), by :func:`gumbel_uniforms`."""
+    return gumbel_uniforms((*lead, len(sizes), max(sizes)), generator,
+                           device)
+
+
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, -1, idx.long().unsqueeze(-1)).squeeze(-1)
 
